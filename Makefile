@@ -14,6 +14,9 @@ test: native
 bench: native
 	$(PY) bench.py
 
+smoke: native
+	$(PY) chip_smoke.py
+
 eval:
 	$(PY) -m dctz_tpu.eval.harness --suite msst19 --out eval/results_msst19.csv
 	$(PY) -m dctz_tpu.eval.harness --suite cesm-atm --out eval/results_cesm.csv
@@ -25,7 +28,4 @@ clean:
 	$(MAKE) -C cpp clean
 	rm -rf .pytest_cache dctz_tpu/__pycache__
 
-.PHONY: all native test bench eval asan clean
-
-sync-bench:  ## regenerate the doc headline blocks from the latest BENCH_r*.json
-	python -m dctz_tpu.tools.sync_bench
+.PHONY: all native test bench smoke eval asan clean

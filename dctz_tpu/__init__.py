@@ -1,11 +1,11 @@
-"""DCTZ-TPU: a TPU-native, error-bounded lossy compressor for floating-point
-scientific data.
+"""DCTZ-TPU: an error-bounded lossy compressor for floating-point scientific
+data, in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of swson/DCTZ
-(reference at /root/reference): blockwise orthonormal DCT-II + adaptive
-255-bin quantization with exact-outlier (EC) or quantizer-table (QT)
-handling, zlib entropy coding, and a self-describing container — redesigned
-as static-shape tensor algebra that scales over a TPU device mesh.
+A from-scratch JAX/XLA rebuild of the capabilities of swson/DCTZ: blockwise
+orthonormal DCT-II + adaptive 255-bin quantization with exact-outlier (EC)
+or quantizer-table (QT) handling, zlib entropy coding, and a self-describing
+container — redesigned as static-shape tensor algebra that runs on the CPU
+or NVIDIA GPUs and scales over a device mesh.
 
 Quick start:
     import numpy as np, dctz_tpu
@@ -19,7 +19,7 @@ def _tune_malloc() -> None:
     mmap/munmap: the container stages allocate and free 10-20 MB byte
     strings per 128 MB array, and fresh-mapped pages fault at wildly
     variable cost (measured 16 ms median -> 2.9 ms for a 16 MB join on the
-    dev host). Opt out with DCTZ_NO_MALLOPT=1."""
+    earlier 4-core development VM). Opt out with DCTZ_NO_MALLOPT=1."""
     import ctypes
     import os
     import sys

@@ -28,7 +28,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dctz-tpu",
-        description="TPU-native error-bounded lossy compressor (DCTZ rebuild)",
+        description="error-bounded lossy compressor (DCTZ rebuild in JAX)",
     )
     # kept as a string: output files embed the literal argv token, like the
     # reference's sprintf("%s.qt.%s.z", path, argv[2]) (dctz-test.c:100)
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--container",
         choices=["v1", "v2"],
         default="v1",
-        help="v1 = reference-compatible format; v2 = chunked TPU format",
+        help="v1 = reference-compatible format; v2 = chunked format",
     )
     p.add_argument(
         "--ids-codec",
@@ -129,10 +129,14 @@ def main(argv: list[str] | None = None) -> int:
         print("Error reading file", file=sys.stderr)
         return 1
 
-    if dtype == np.float64 and not args.native:
+    if not args.native:
         import jax
 
-        jax.config.update("jax_enable_x64", True)
+        from .utils.cache import enable_compile_cache
+
+        enable_compile_cache()
+        if dtype == np.float64:
+            jax.config.update("jax_enable_x64", True)
 
     eb = float(args.error_bound)
     out_path = src.with_name(f"{src.name}.{args.mode}.{args.error_bound}.z")

@@ -40,36 +40,30 @@ class CodecConfig:
         smaller ids section AND ~4x faster deflate (HUFFMAN_ONLY suffices
         on the packed stream).
       ids_codec: entropy codec for the bin-index stream (v2 containers).
-        "auto" resolves per backend: the DEVICE coder on TPU backends
-        (the fused-kernel fast path; ~20% smaller than rANS on climate
-        data, though a few % larger on pure-random worst cases), else the
-        native static rANS (cpp/rans.cpp, ~480 MB/s at equal-or-better
-        ratio than zlib-huffman) on the ids4 nibbles when the native
-        library is built, else deflate. "device" codes the
-        stream ON THE DEVICE (ops/idpack.py: transposed per-position
-        patched fixed-width packing) so the host only slices/concatenates —
-        the TPU fast path, and measured ~20% smaller than rANS on climate
-        data. Note: on small arrays (<~1 MB) per-chunk/table overheads can
-        outweigh the gains — v1/deflate may compress better there.
+        "auto" uses the host coder on every backend (backend.device_ids):
+        the native static rANS (cpp/rans.cpp) on the ids4 nibbles when the
+        native library is built, else deflate. "device" codes the stream
+        ON THE DEVICE (ops/idpack.py: transposed per-position patched
+        fixed-width packing) so the host only slices/concatenates; it was
+        measured ~20% smaller than rANS on climate data. Note: on small
+        arrays (<~1 MB) per-chunk/table overheads can outweigh the gains —
+        v1/deflate may compress better there.
       container: "v1" emits the reference-compatible single-segment container
         (56-byte C struct header, dctz.h:96-119); "v2" emits the chunked
-        TPU-native container that supports parallel entropy coding and
-        sharded multi-host writes.
+        container that supports parallel entropy coding and sharded
+        multi-host writes.
       shuffle: byte-shuffle the float DC/AC streams before deflate (v2
         containers only — measured +61% DC ratio and ~2x deflate speed);
         v1 keeps the reference's raw layout.
       chunk_bytes: uncompressed chunk size for v2 parallel deflate (1 MiB
-        default: +12%% throughput over 4 MiB on a 4-core host at <0.2%%
-        ratio cost — finer chunks balance the thread pool).
+        default: finer chunks balance the thread pool at <0.2% ratio cost;
+        measured +12% throughput over 4 MiB on the earlier 4-core
+        development host).
       internal_dtype: "auto" runs the transform in the input dtype (float64
-        needs jax x64 enabled) — EXCEPT on TPU-like backends, where float64
-        is software-emulated: there, v2 containers with truncate=True and
-        error_bound >= 1e-5 promote float64 input to the fast f32 pipeline
-        (the streams are float32 under truncate anyway; the added
-        transform-rounding term is ~1e-6 absolute in the scaled domain —
-        budget in docs/numerics.md; v1 containers are exempt for reference
-        byte parity). "float32" forces the single-precision device path
-        regardless of input dtype, backend, bound, or container.
+        needs jax x64 enabled). "float32" forces the single-precision
+        device path for float64 input (the streams are float32 under
+        truncate anyway; the added transform-rounding term is ~1e-6
+        absolute in the scaled domain — budget in docs/numerics.md).
       float_codec: coding of the DC/AC float streams in v2 containers.
         "plane" (default) splits the shuffled stream into byte planes and
         codes each by its cheapest method (raw for the near-random low
@@ -91,8 +85,8 @@ class CodecConfig:
       host_codec: entropy backend for v2 side sections and PLC planes.
         "auto" (default) uses chunk-parallel zstd when the `zstandard`
         package is importable — measured 2-10x faster than the
-        zlib/rANS stage at equal-or-better ratio on every bench stream
-        (docs/benchmarks.md); "zlib" forces the pre-zstd codec set for
+        zlib/rANS stage at equal-or-better ratio on every stream of the
+        earlier development host; "zlib" forces the pre-zstd codec set for
         byte parity with older fixtures. v1 containers always use zlib
         (reference interop).
       verify: device-side verify-and-repair (ops/repair.py): reconstruct the
@@ -127,7 +121,7 @@ class CodecConfig:
     #: round-5 MEASURED negative — under the per-plane codec the raw DC
     #: planes already carry long-range structure zstd exploits, and
     #: delta/xor prediction moved every measured workload by at most
-    #: -2%..+2% (only brown noise gained 6-9%; docs/benchmarks.md).
+    #: -2%..+2% (only brown noise gained 6-9%; a ratio measurement).
     #: The reference deflates DC raw (dctz-comp-lib.c:669-703).
     dc_delta: bool = False
     dpk_host_codec: Literal["none", "deflate", "rans", "zstd"] = "none"
@@ -153,18 +147,17 @@ class CodecConfig:
     #: serializing after it (VERDICT round-3 #1). None/0 = always
     #: monolithic; an int = explicit segment size.
     segment_elems: int | Literal["auto"] | None = "auto"
-    #: MXU precision of the ANALYSIS (forward) DCT on the encode path.
-    #: "highest" (default) = 6-pass full-f32 passes, byte-parity with the
-    #: reference streams. "high" = 3-pass bf16x3 — measured 1.85x faster
-    #: on the isolated DCT stage / ~2.6% on the VPU-bound fused kernel
-    #: (docs/numerics.md) at ~2^-21 relative coefficient rounding, which
-    #: only shifts WHICH bin a borderline coefficient lands in: the
-    #: verify-repair pass and the decoder reconstruct with the same
-    #: HIGHEST IDCT either way, so cfg.verify still guarantees the
-    #: pointwise bound exactly (the in-kernel L2 screen widens its
-    #: transform-rounding budget accordingly). Recommended with
-    #: verify=True; streams are NOT byte-identical to "highest" ones
-    #: (same format, different borderline bins).
+    #: Matmul precision of the ANALYSIS (forward) DCT on the encode path
+    #: (backend.dct_precision). "highest" (default) = true float32,
+    #: byte-parity with the reference streams. "high" = the explicit
+    #: three-pass bf16 algorithm (DotAlgorithmPreset.BF16_BF16_F32_X3) at
+    #: ~2^-16 relative rounding per product, which only shifts WHICH bin a
+    #: borderline coefficient lands in: the verify-repair pass and the
+    #: decoder reconstruct with the same HIGHEST IDCT either way, so
+    #: cfg.verify still guarantees the pointwise bound exactly
+    #: (docs/numerics.md). Recommended with verify=True; streams are NOT
+    #: byte-identical to "highest" ones (same format, different borderline
+    #: bins).
     dct_precision: Literal["highest", "high"] = "highest"
 
     def __post_init__(self) -> None:

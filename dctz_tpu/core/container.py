@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import zlib
 
 import numpy as np
 
@@ -83,7 +84,7 @@ class Header:
     #: v2: DC section stores order-preserving-u32 DELTAS of the block DC
     #: values (restart every entropy.DC_RESTART blocks). Opt-in
     #: (cfg.dc_delta, default off — measured a wash on the available
-    #: workloads, docs/benchmarks.md; only genuinely random-walk DC
+    #: workloads; only genuinely random-walk DC
     #: sequences gain). Lossless: exact u32 arithmetic both ways. The
     #: reference deflates DC raw (dctz-comp-lib.c:669-703).
     dcd: bool = False
@@ -232,7 +233,7 @@ _FLAG_PLC = 1 << 8
 # (ids4 exceptions; DPK width / exceptions / meta) — entropy.chunked_zstd
 _FLAG_ZST = 1 << 10
 # the DPK packed section host-zstd-coded (the zstd ratio mode, strictly
-# dominating dpkz/dpkr on measured streams: docs/benchmarks.md)
+# dominating dpkz/dpkr on the measured streams)
 _FLAG_DPKS = 1 << 11
 # DC section delta-coded (Header.dcd)
 _FLAG_DCD = 1 << 12
@@ -481,3 +482,36 @@ def parse_v2(
 def detect_format(blob: bytes | memoryview) -> str:
     """'v2' if the magic matches, else 'v1'."""
     return "v2" if bytes(memoryview(blob)[:4]) == V2_MAGIC else "v1"
+
+
+def canonical(blob: bytes) -> bytes:
+    """Canonicalize a container for byte-equality comparisons: zero the
+    decoder-ignored mean field (its value depends on summation order, so
+    sharded/native/XLA encoders legitimately differ in the last ulp —
+    dctz-decomp-lib.c:499,508 never reads it) and recompute the v3
+    header/table crc that covers it. All other bytes pass through, so any
+    real stream difference still fails the comparison.
+    """
+    b = bytearray(blob)
+    if detect_format(blob) == "v1":
+        b[32:40] = b"\0" * 8  # union mean (dctz.h layout; see pack_v1)
+        return bytes(b)
+    magic, version, flags = struct.unpack_from("<4sHH", b, 0)
+    assert magic == V2_MAGIC
+    mean_off = struct.calcsize("<4sHHQdd")
+    b[mean_off : mean_off + 8] = b"\0" * 8
+    if version < 3:
+        return bytes(b)
+    # walk the per-section chunk tables to the header/table crc field
+    nsections = (
+        6
+        if flags & _FLAG_DPK
+        else (4 if flags & _FLAG_IDS4 else 3)
+    )
+    off = _V2_FIXED_SIZE
+    per_chunk = 8 if version >= 2 else 4  # size + crc words
+    for _ in range(nsections):
+        (cnt,) = struct.unpack_from("<I", b, off)
+        off += 4 + per_chunk * cnt
+    struct.pack_into("<I", b, off, zlib.crc32(bytes(b[:off])) & 0xFFFFFFFF)
+    return bytes(b)

@@ -60,8 +60,9 @@ def section_pool() -> concurrent.futures.ThreadPoolExecutor:
 HUFFMAN_ONLY = zlib.Z_HUFFMAN_ONLY
 
 # ---------------------------------------------------------------------------
-# zstd backend (v2 containers). Measured on the bench workload's streams
-# (docs/benchmarks.md): chunk-parallel zstd-1 beats chunked deflate-1 by
+# zstd backend (v2 containers). Measured on the bench workload's streams on
+# the earlier 4-core development host: chunk-parallel zstd-1 beats chunked
+# deflate-1 by
 # ~10x on encode and ~4x on decode at equal-or-better ratio, beats the
 # native rANS on the exception stream (2.0 ms vs 4.8 ms encode at the same
 # size), and on the DC byte planes zstd's LZ matches ALSO beat deflate-6's
@@ -95,9 +96,10 @@ def zstd_decompress(blob: bytes | memoryview) -> bytes:
 
 
 # 512 KiB chunks: zstd is fast enough that POOL DISPATCH overhead beats
-# balance on a 4-core host — measured best-of pack 16.5 -> 13.6 ms and
-# decode prep 9.0 -> 7.3 ms per 128 MB going from 128 KiB to 512 KiB at
-# identical ratio (round 4; ~25 fewer futures per section)
+# balance on a 4-core host — measured on the earlier development host:
+# best-of pack 16.5 -> 13.6 ms and decode prep 9.0 -> 7.3 ms per 128 MB
+# going from 128 KiB to 512 KiB at identical ratio (~25 fewer futures per
+# section)
 _ZSTD_CHUNK = 1 << 19
 
 
@@ -365,7 +367,7 @@ def shuffle_bytes(data: bytes | memoryview, itemsize: int) -> bytes:
     """HDF5-style byte shuffle: transpose an array of fixed-size items into
     per-byte planes. On float streams this groups the (highly repetitive)
     exponent bytes together — measured on DCTZ DC streams: ratio 1.09 ->
-    1.76 AND ~2x deflate speed (docs/benchmarks.md). v2 containers only."""
+    1.76 AND ~2x deflate speed (earlier development host). v2 containers only."""
     import numpy as np
 
     a = np.frombuffer(data, np.uint8)

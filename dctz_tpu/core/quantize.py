@@ -7,10 +7,10 @@ Reference hot loops re-expressed as whole-array tensor algebra:
     QT renormalization (dctz-comp-lib.c:471-533)
   * decode — dequantization + AC restore (dctz-decomp-lib.c:389-483)
 
-Everything is elementwise VPU work plus one cumsum for the variable-length
-AC_exact compaction; no data-dependent shapes appear on the device (the
-compacted stream lives in a fixed-capacity buffer, its true length is a
-scalar output).
+Everything is elementwise work plus one cumsum + scatter for the
+variable-length AC_exact compaction; no data-dependent shapes appear on the
+device (the compacted stream lives in a fixed-capacity buffer, its true
+length is a scalar output).
 
 Faithful quirks preserved:
   * DC positions are marked with the escape id in bin_index but never consume
@@ -46,20 +46,14 @@ from .binning import linear_to_zigzag, zigzag_to_center
 class Quantized(NamedTuple):
     """Device-side result of quantizing one array's DCT coefficients.
 
-    Two AC layouts exist (identical stream bytes after host assembly):
-      global  — ac_buf (capacity,), ac_count scalar (cumsum+scatter; the
-                portable path, fast on CPU).
-      chunked — ac_buf (nchunks, capc), ac_count (nchunks,) per-chunk
-                counts, plus an overflow flag (TPU path; see
-                ops/compaction.py for why scatter is avoided there).
-    """
+    The AC stream is globally compacted: ac_buf (capacity,) holds the
+    escaped coefficients in row-major order, ac_count is their number."""
 
     bin_ids: jax.Array  # (nblk, bs) uint8; padding & DC slots hold ESCAPE
     dc: jax.Array  # (nblk,) float32 (truncate=True) or input dtype
-    ac_buf: jax.Array  # see layout note above
-    ac_count: jax.Array  # scalar int32 / (nchunks,) int32
+    ac_buf: jax.Array  # (capacity,) escaped coefficients, zeros past count
+    ac_count: jax.Array  # scalar int32
     qtable: jax.Array | None  # (bs,) QT mode only
-    overflowed: jax.Array | None = None  # chunked layout only
     bound_ok: jax.Array | None = None  # verify-repair outcome (cfg.verify)
 
 
@@ -116,7 +110,12 @@ def _compact(flat_mask: jax.Array, flat_vals: jax.Array, capacity: int):
     Returns (buf (capacity,), count). Uses cumsum + scatter-drop so shapes
     stay static under jit; entries past `count` are zeros.
     """
-    idx = jnp.cumsum(flat_mask.astype(jnp.int32)) - 1
+    # the barrier keeps XLA from fusing the prefix sum (a reduce-window on
+    # the GPU) into the scatter's index computation, where each element
+    # would recompute its own window
+    idx = jax.lax.optimization_barrier(
+        jnp.cumsum(flat_mask.astype(jnp.int32)) - 1
+    )
     pos = jnp.where(flat_mask, idx, capacity)  # out-of-range rows are dropped
     buf = jnp.zeros((capacity,), flat_vals.dtype).at[pos].set(
         flat_vals, mode="drop"
@@ -141,23 +140,24 @@ def chunk_width(total: int, block_size: int) -> int:
     return k * block_size
 
 
-def encode(
+def quantize(
     coeffs: jax.Array,
     n: int,
     cfg: CodecConfig,
-    ac_capacity: int | None = None,
     axis_name: str | None = None,
-    compaction: str = "auto",
     promote: bool = True,
     ext_qtable: jax.Array | None = None,
-) -> Quantized:
+):
     """Quantize padded block coefficients (nblk, bs); n is the true element
     count (static). Covers reference pass 1 + pass 2 for both modes.
 
+    Returns (bin_ids (nblk, bs) uint8, stored (nblk, bs) values as the
+    container stores them in place, dc (nblk,), qtable or None).
+
     axis_name: when running inside shard_map, the mesh axis to all-reduce the
     QT quantizer table over — the table must see pass-1 maxima from ALL
-    shards before pass 2 (a ~512-byte `lax.pmax` riding ICI; the only
-    cross-chip communication besides the scaling factor).
+    shards before pass 2 (a ~512-byte `lax.pmax`; the only cross-device
+    communication besides the scaling factor).
 
     ext_qtable: externally reduced per-position |escaped coef| maxima
     (slots >= 1; slot 0 ignored) — the segmented stream writer's GLOBAL
@@ -167,9 +167,6 @@ def encode(
     block DC (the reference quirk; the decoder never reads it)."""
     nblk, bs = coeffs.shape
     dtype = coeffs.dtype
-    explicit_capacity = ac_capacity
-    if ac_capacity is None:
-        ac_capacity = n
     w, rmin, rmax = _geometry(cfg, np.dtype(dtype.name))
     valid, ac_mask = _masks(nblk, bs, n)
 
@@ -207,8 +204,7 @@ def encode(
         # Pass 2: renormalize outliers toward the bin range edge
         # (dctz-comp-lib.c:484-533). C mixes float with the double error
         # bound, so run in the widest available dtype and round once.
-        # promote=False keeps the value dtype (matches the f32-only Pallas
-        # QT kernel for equal-precision stream-equality tests).
+        # promote=False keeps the value dtype.
         wd = _work_dtype(dtype) if promote else dtype
         side = jnp.where(coeffs > rmax, rmax, rmin).astype(wd)
         qrow = qtable.astype(wd)[None, :]
@@ -225,46 +221,30 @@ def encode(
         re_in, re_ids = _assign_bins(coeffs, rmin, rmax, w, cfg.nbins)
         ids = jnp.where(escape & re_in, re_ids, ids)
         binned = binned | (escape & re_in)
-        escape = escape & ~re_in
 
     # bin_index stream: escape marks at DC slots and escaped ACs; padding
     # positions also read ESCAPE for determinism (sliced off at flatten).
     bin_ids = jnp.where(
         binned, ids, jnp.asarray(C.ESCAPE, jnp.int32)
     ).astype(jnp.uint8)
+    return bin_ids, coeffs.astype(stored_dtype), dc, qtable
 
-    flat_vals = coeffs.astype(stored_dtype).reshape(-1)
-    return _compact_stream(
-        bin_ids,
-        escape,
-        flat_vals,
-        dc,
-        qtable,
-        explicit_capacity,
-        ac_capacity,
-        compaction,
+
+def encode(
+    coeffs: jax.Array,
+    n: int,
+    cfg: CodecConfig,
+    ac_capacity: int | None = None,
+    axis_name: str | None = None,
+    promote: bool = True,
+    ext_qtable: jax.Array | None = None,
+) -> Quantized:
+    """quantize() followed by the global AC compaction; ac_capacity
+    defaults to n (always lossless)."""
+    bin_ids, stored, dc, qtable = quantize(
+        coeffs, n, cfg, axis_name, promote, ext_qtable
     )
-
-
-def _compact_stream(
-    bin_ids, escape, flat_vals, dc, qtable, explicit_capacity, ac_capacity,
-    compaction,
-):
-    nblk, bs = bin_ids.shape
-    from ..ops import compaction as cp
-
-    if compaction == "auto":
-        compaction = "chunked" if cp.use_chunked_compaction() else "global"
-    if compaction == "chunked":
-        cw = chunk_width(nblk * bs, bs)
-        # In the chunked layout ac_capacity means per-CHUNK capacity.
-        capc = min(explicit_capacity or cp.CAPC, cw)
-        ac_buf, counts, overflowed = cp.compact_chunked(
-            escape.reshape(-1), flat_vals, cw, capc
-        )
-        return Quantized(bin_ids, dc, ac_buf, counts, qtable, overflowed)
-    ac_buf, ac_count = _compact(escape.reshape(-1), flat_vals, ac_capacity)
-    return Quantized(bin_ids, dc, ac_buf, ac_count, qtable)
+    return repack(bin_ids, stored, dc, qtable, n, ac_capacity)
 
 
 def repack(
@@ -273,26 +253,20 @@ def repack(
     dc: jax.Array,
     qtable: jax.Array | None,
     n: int,
-    cfg: CodecConfig,
     ac_capacity: int | None = None,
-    compaction: str = "auto",
 ) -> Quantized:
-    """Rebuild a Quantized from modified bin ids + in-place stored values
-    (the verify-repair output, ops/repair.py): recompacts the AC stream,
-    everything else passes through."""
+    """Compact the AC stream from bin ids + in-place stored values (the
+    quantize() or verify-repair output, ops/repair.py); the escape marks
+    alone select the stream, everything else passes through."""
     nblk, bs = bin_ids.shape
     _, ac_mask = _masks(nblk, bs, n)
     escape = ac_mask & (bin_ids.astype(jnp.int32) == C.ESCAPE)
-    return _compact_stream(
-        bin_ids,
-        escape,
+    ac_buf, ac_count = _compact(
+        escape.reshape(-1),
         dense_vals.reshape(-1),
-        dc,
-        qtable,
-        ac_capacity,
         ac_capacity if ac_capacity is not None else n,
-        compaction,
     )
+    return Quantized(bin_ids, dc, ac_buf, ac_count, qtable)
 
 
 def decode(
@@ -303,17 +277,17 @@ def decode(
     n: int,
     cfg: CodecConfig,
     dtype,
-    ac_layout: str = "global",
+    ac_layout: str = "chunked",
 ) -> jax.Array:
     """Rebuild padded (nblk, bs) coefficients (dctz-decomp-lib.c:389-483).
 
     bin_ids: (nblk, bs) uint8 (padding slots must hold ESCAPE or anything —
-    they are masked); dc: (nblk,); ac_buf: the escaped-coefficient stream,
-    either globally compacted (capacity,), per-chunk padded (nchunks, capc)
-    (ac_layout="chunked", the TPU gather-free path), or a full (nblk, bs)
-    grid holding stored values in place (ac_layout="dense" — used by the
-    encode-side verifier, which has the values at their positions and skips
-    the compaction round trip; the arithmetic is identical)."""
+    they are masked); dc: (nblk,); ac_buf: the escaped-coefficient stream as
+    per-chunk padded rows (nchunks, capc) (ac_layout="chunked": every
+    decoder's layout, ops/compaction.py), or a full (nblk, bs) grid holding
+    stored values in place (ac_layout="dense" — used by the encode-side
+    verifier, which has the values at their positions and skips the
+    compaction round trip; the arithmetic is identical)."""
     nblk, bs = bin_ids.shape
     w, rmin, rmax = _geometry(cfg, np.dtype(jnp.dtype(dtype).name))
     _, ac_mask = _masks(nblk, bs, n)
@@ -325,18 +299,12 @@ def decode(
     # k-th AC stream entry.
     if ac_layout == "dense":
         ac_vals = ac_buf
-    elif ac_layout == "chunked":
+    else:
         from ..ops import compaction as cp
 
         cw = (nblk * bs) // ac_buf.shape[0]
         mask2 = escape.reshape(-1, cw)
         ac_vals = cp.expand_chunked(mask2, ac_buf).reshape(nblk, bs)
-    else:
-        flat_escape = escape.reshape(-1)
-        ac_idx = jnp.cumsum(flat_escape.astype(jnp.int32)) - 1
-        ac_vals = ac_buf[jnp.clip(ac_idx, 0, ac_buf.shape[0] - 1)].reshape(
-            nblk, bs
-        )
     ac_vals = ac_vals.astype(dtype)  # float32 -> working dtype (USE_TRUNCATE)
 
     if cfg.mode == "qt" and qtable is not None:

@@ -6,9 +6,11 @@ FFTW plans cached in file-static state, re-planned for the remainder block
 (dctz-comp-lib.c:326-336). That construction is numerically identical to the
 orthonormal DCT-II (verified to ~1e-16 against scipy.fft.dct(norm='ortho')).
 
-At block size 64 an FFT buys nothing on a TPU: the transform is a fixed 64x64
-orthonormal matrix, so the whole array transforms as ONE batched matmul on the
-MXU — (nblk, 64) @ B.T — and the inverse is the transpose. The remainder
+At block size 64 an FFT buys nothing: the transform is a fixed 64x64
+orthonormal matrix, so the whole array transforms as ONE batched matmul,
+(nblk, 64) @ B.T, and the inverse is the transpose. Both run at
+Precision.HIGHEST (true float32; a GPU would otherwise use TF32, whose
+rounding breaks the error bound). The remainder
 block (N % 64 != 0) uses a rem-point basis, matching the reference's
 re-planned rem-point FFT (dct.c:55-103 with dn=rem), not a padded 64-point
 transform; rem is static under jit because shapes are static.
@@ -45,67 +47,16 @@ def dct2_basis(n: int, dtype=jnp.float32) -> jax.Array:
     return jnp.asarray(_dct2_basis_np(n), dtype=dtype)
 
 
-@functools.lru_cache(maxsize=32)
-def _blockdiag_np(n: int, copies: int, forward: bool):
-    """Block-diagonal stack of the basis for wide-lane matmuls."""
-    b = _dct2_basis_np(n)
-    m = b.T if forward else b
-    out = np.zeros((n * copies, n * copies), np.float64)
-    for i in range(copies):
-        out[i * n : (i + 1) * n, i * n : (i + 1) * n] = m
-    return out
-
-
-#: Lane width for the TPU wide-matmul formulation. A (M, 64) x (64, 64)
-#: matmul uses half the MXU's 128 lanes; packing two blocks per row into a
-#: (M/2, 128) x (128, 128) block-diagonal matmul measured 2.2x faster on
-#: v5e (265 GB/s vs 122 GB/s); 256-wide was slower again.
-WIDE_LANES = 128
-
-
-def _use_wide() -> bool:
-    try:
-        return jax.devices()[0].platform not in ("cpu", "gpu")
-    except RuntimeError:
-        return False
-
-
-def prec_of(name: str) -> jax.lax.Precision:
-    """Map CodecConfig.dct_precision to the lax enum ("high" = 3-pass
-    bf16x3, the documented relaxed ANALYSIS mode; everything else
-    HIGHEST)."""
-    return (
-        jax.lax.Precision.HIGH if name == "high" else jax.lax.Precision.HIGHEST
-    )
-
-
 def block_dct_flat(
     x: jax.Array, block_size: int, precision=jax.lax.Precision.HIGHEST
 ) -> jax.Array:
     """Forward DCT of a flat array whose length is a block multiple;
-    returns (nblk, block_size). Uses the wide block-diagonal formulation on
-    TPU (same math; summation order differs by at most the zero terms)."""
-    n = x.shape[0]
-    lanes = WIDE_LANES
-    if _use_wide() and n % lanes == 0 and lanes % block_size == 0:
-        bd = jnp.asarray(
-            _blockdiag_np(block_size, lanes // block_size, True), x.dtype
-        )
-        out = jnp.matmul(x.reshape(-1, lanes), bd, precision=precision)
-        return out.reshape(-1, block_size)
+    returns (nblk, block_size)."""
     return block_dct(x.reshape(-1, block_size), precision=precision)
 
 
 def block_idct_flat(coeffs: jax.Array) -> jax.Array:
     """Inverse of block_dct_flat: (nblk, bs) -> flat (nblk*bs,)."""
-    nblk, bs = coeffs.shape
-    lanes = WIDE_LANES
-    if _use_wide() and (nblk * bs) % lanes == 0 and lanes % bs == 0:
-        bd = jnp.asarray(_blockdiag_np(bs, lanes // bs, False), coeffs.dtype)
-        out = jnp.matmul(
-            coeffs.reshape(-1, lanes), bd, precision=jax.lax.Precision.HIGHEST
-        )
-        return out.reshape(-1)
     return block_idct(coeffs).reshape(-1)
 
 
@@ -117,7 +68,7 @@ def block_dct(
     """Forward DCT-II of a batch of blocks: (..., n) -> (..., n).
 
     Equivalent to the reference's per-block dct_fftw loop
-    (dctz-comp-lib.c:325-340) collapsed into one MXU matmul.
+    (dctz-comp-lib.c:325-340) collapsed into one matmul.
     """
     n = blocks.shape[-1]
     if basis is None:

@@ -70,6 +70,21 @@ class Dataset:
         return "synthetic"
 
 
+def climate_formula(n: int, xp=np):
+    """Deterministic climate-shaped float32 signal (smooth + small-scale
+    detail + rare spikes), computable with numpy (xp=np) on the host or
+    jax.numpy on the device from the same formula (up to libm-vs-XLA sin
+    ulps). The benchmark and chip_smoke.py use it at 2**25-2**28 elements."""
+    t = xp.arange(n, dtype=xp.float32)
+    x = (
+        xp.sin(t * xp.float32(0.001)) * xp.float32(40.0)
+        + xp.sin(t * xp.float32(0.137)) * xp.float32(3.0)
+        + xp.sin(t * xp.float32(2.03)) * xp.float32(0.3)
+    )
+    spike = xp.arange(n, dtype=xp.int32) % 9973 == 0  # ~0.01% of elements
+    return xp.where(spike, x * xp.float32(8.0), x).astype(xp.float32)
+
+
 # The MSST'19 suite (tests/list-msst19.txt:1-6; zc-patches/varInfo.txt:1-6).
 MSST19 = [
     Dataset("sedov", (31040,), "f64", "climate", "sedov_p_3d.bin.f64"),

@@ -23,9 +23,7 @@ import csv
 import json
 import lzma
 import sys
-import time
 import zlib
-
 
 from .datasets import SUITES, Dataset
 
@@ -50,12 +48,10 @@ def run_one(
     from ..utils.metrics import evaluate
 
     x = ds.load(data_dir)
-    t0 = time.perf_counter()
     if engine == "native":
         from .. import native
 
         blob = native.compress(x, error_bound, mode, verify=verify)
-        t1 = time.perf_counter()
         rec = native.decompress(blob)
     elif engine == "auto":
         # rate="auto": the encoder widens the bin geometry per array until
@@ -68,7 +64,6 @@ def run_one(
             rate="auto", verify=True,
         )
         blob = compress(x, config=cfg)
-        t1 = time.perf_counter()
         rec = decompress(blob)
     elif engine == "sharded":
         from .. import compress_sharded, decompress_sharded
@@ -77,16 +72,13 @@ def run_one(
             mode=mode, error_bound=error_bound, container="v2", verify=verify
         )
         blob = compress_sharded(x, config=cfg)
-        t1 = time.perf_counter()
         rec = decompress_sharded(blob)
     else:
         from .. import compress, decompress
 
         cfg = CodecConfig(mode=mode, error_bound=error_bound, verify=verify)
         blob = compress(x, config=cfg)
-        t1 = time.perf_counter()
         rec = decompress(blob)
-    t2 = time.perf_counter()
     from ..utils.metrics import ssim as _ssim
 
     m = evaluate(x, rec, error_bound, len(blob))
@@ -103,8 +95,6 @@ def run_one(
         "ssim": round(_ssim(x, rec, shape=ds.dims), 5),
         "bound_satisfied": m["bound_satisfied"],
         "verify": verify,
-        "compress_mb_s": round(x.nbytes / 1e6 / (t1 - t0), 2),
-        "decompress_mb_s": round(x.nbytes / 1e6 / (t2 - t1), 2),
     }
 
 
@@ -112,14 +102,12 @@ def run_lossless_baseline(ds: Dataset, codec: str, data_dir: str | None = None) 
     """Lossless comparison point (stand-in for the SZ/zfp head-to-head)."""
     x = ds.load(data_dir)
     raw = x.tobytes()
-    t0 = time.perf_counter()
     if codec == "zlib":
         blob = zlib.compress(raw, 6)
     elif codec == "lzma":
         blob = lzma.compress(raw, preset=1)
     else:
         blob = bz2.compress(raw, 5)
-    dt = time.perf_counter() - t0
     return {
         "compressor": codec,
         "dataset": ds.name,
@@ -133,8 +121,6 @@ def run_lossless_baseline(ds: Dataset, codec: str, data_dir: str | None = None) 
         "ssim": 1.0,
         "bound_satisfied": True,
         "verify": False,
-        "compress_mb_s": round(len(raw) / 1e6 / dt, 2),
-        "decompress_mb_s": float("nan"),
     }
 
 
@@ -146,11 +132,8 @@ def run_sz_like(ds: Dataset, error_bound: float, data_dir: str | None = None) ->
     from . import sz_like
 
     x = ds.load(data_dir)
-    t0 = time.perf_counter()
     blob = sz_like.compress(x, error_bound)
-    t1 = time.perf_counter()
     rec = sz_like.decompress(blob)
-    t2 = time.perf_counter()
     from ..utils.metrics import ssim as _ssim
 
     m = evaluate(x, rec, error_bound, len(blob))
@@ -167,8 +150,6 @@ def run_sz_like(ds: Dataset, error_bound: float, data_dir: str | None = None) ->
         "ssim": round(_ssim(x, rec, shape=ds.dims), 5),
         "bound_satisfied": m["bound_satisfied"],
         "verify": True,  # bound-guaranteed by construction
-        "compress_mb_s": round(x.nbytes / 1e6 / (t1 - t0), 2),
-        "decompress_mb_s": round(x.nbytes / 1e6 / (t2 - t1), 2),
     }
 
 

@@ -1,27 +1,19 @@
-"""TPU-friendly variable-length stream compaction.
+"""Chunk-local variable-length stream compaction.
 
-The generic encoder compacts escaped coefficients with cumsum + scatter
-(core/quantize.py). XLA:TPU executes 1-D scatters ~serially (~8 ns/update:
-measured 515 ms for a 64Mi-element scatter on v5e, vs 7.6 ms for the whole
-rest of the encode pipeline), and big gathers (take_along_axis/searchsorted)
-are equally pathological. The TPU-native formulation keeps ALL data movement
-chunk-local and static:
+Fixed-shape compaction of masked values in chunks of `cw` elements, used
+wherever the DPK format stores per-chunk rows: the exception stream of the
+device id coder (ops/idpack.py) and the AC rows of DPK containers.
 
-  encode: per chunk of `cw` elements, move escaped values to the front in
-    order via one batched `lax.sort` along the minor axis (a vectorized
-    sorting network: ~10 ms for 64Mi on v5e) and keep only `capc` slots.
-    The host concatenates the per-chunk prefixes (cheap numpy) — the
-    resulting stream is byte-identical to the scatter path's because chunks
-    are contiguous. Chunks that overflow `capc` raise a flag; the caller
-    re-runs the capc == cw variant (always lossless).
+  encode: per chunk, move masked values to the front in order via one
+    batched `lax.sort` along the minor axis and keep only `capc` slots. The
+    host concatenates the per-chunk prefixes, which gives exactly the global
+    row-major stream because chunks are contiguous. Chunks that overflow
+    `capc` raise a flag; the caller re-runs the capc == cw variant (always
+    lossless).
 
-  decode: placement of the compacted stream back to escaped positions is a
-    per-chunk permutation — expressed as a one-hot contraction that the MXU
-    executes instead of a gather. Each output element receives exactly one
-    term, so float arithmetic is exact.
-
-Used automatically when the default backend is a TPU; CPU keeps the scatter
-path (fast there, and bit-identical output either way).
+  decode: placement of the compacted stream back to masked positions is a
+    per-chunk permutation, expressed as a one-hot contraction. Each output
+    element receives exactly one term, so float arithmetic is exact.
 """
 
 from __future__ import annotations
@@ -54,20 +46,6 @@ def compact_chunked(
     vals2 = flat_vals.reshape(nc, cw)
     counts = jnp.sum(mask2, axis=-1, dtype=jnp.int32)
     overflowed = jnp.any(counts > capc)
-    from . import shuffle
-
-    if (
-        shuffle.enabled()
-        and shuffle.eligible(cw)
-        and vals2.dtype == jnp.float32
-        # x64 traces recurse Mosaic's convert lowering to death (see
-        # api._pallas_x64_guard); the f64 full-width path keeps the sort
-        and not jax.config.jax_enable_x64
-    ):
-        # Pallas butterfly routing: bit-identical output, ~2x the sort's
-        # throughput (ops/shuffle.py header for the numbers)
-        ac = shuffle.compact_f32(mask2, vals2, capc)
-        return ac, counts, overflowed
     keys = jnp.where(
         mask2, jax.lax.broadcasted_iota(jnp.int32, (nc, cw), 1), _INTMAX
     )
@@ -85,7 +63,7 @@ def expand_chunked(
     """Inverse of compact_chunked: values back at masked positions (else 0).
 
     mask2: (nc, cw) bool; ac_chunks: (nc, capc). The k-th masked position of
-    chunk c receives ac_chunks[c, k] — computed as a one-hot MXU contraction
+    chunk c receives ac_chunks[c, k], computed as a one-hot contraction
     (each output gets exactly one term, so the float arithmetic is exact).
 
     Callers whose values fit bf16 exactly (e.g. id BYTES <= 255: 8
@@ -95,17 +73,6 @@ def expand_chunked(
     """
     nc, cw = mask2.shape
     capc = ac_chunks.shape[1]
-    from . import shuffle
-
-    if (
-        shuffle.enabled()
-        and shuffle.eligible(cw)
-        and ac_chunks.dtype
-        in (jnp.float32, jnp.bfloat16, jnp.int32, jnp.uint8)
-        and not jax.config.jax_enable_x64  # see compact_chunked note
-    ):
-        # Pallas butterfly routing (bit-identical; ops/shuffle.py)
-        return shuffle.expand(mask2, ac_chunks)
     rank = jnp.cumsum(mask2.astype(jnp.int32), axis=-1) - 1  # (nc, cw)
     rank = jnp.where(mask2, rank, -1)
     lo_w = 16
@@ -151,11 +118,3 @@ def expand_chunked(
     )
     return jnp.sum(t * ohh, axis=2).astype(ac_chunks.dtype)
 
-
-def use_chunked_compaction() -> bool:
-    """Chunk-local compaction for TPU-ish backends, scatter elsewhere."""
-    try:
-        plat = jax.devices()[0].platform
-    except RuntimeError:
-        return False
-    return plat not in ("cpu", "gpu")

@@ -1,11 +1,11 @@
 """Device-side entropy coding of the bin-index stream ("DPK").
 
 Replaces the host IDS4-nibble + rANS/deflate stage (the round-1 end-to-end
-bottleneck: ~92% of wall time was host entropy, reference role at
-/root/reference/dctz-comp-lib.c:620-732) with a TPU-native transform that
-leaves the chip ALREADY CODED — the host only slices and concatenates.
+bottleneck, reference role at dctz-comp-lib.c:620-732) with a device
+transform whose output leaves the device ALREADY CODED — the host only
+slices and concatenates.
 
-Scheme (per docs/device-entropy-design.md Candidate A, refined):
+Scheme (per-chunk fixed-width packing, refined per coefficient position):
 
   The bin-id distribution is strongly position-dependent inside a DCT block:
   low-frequency positions carry large ids, high-frequency positions are
@@ -26,11 +26,10 @@ Scheme (per docs/device-entropy-design.md Candidate A, refined):
      AC stream (ops/compaction.py, chunk width = quantize.chunk_width):
      per-tile exception lists are pathologically skewed (a low-frequency
      position row can be ALL exceptions), while block-major chunks spread
-     them evenly — smaller capacities, one-hot expands the MXU actually
-     likes, and no second device transpose. The tight exception stream is
+     them evenly — smaller capacities and no second device transpose. The tight exception stream is
      simply the exception bytes in global element order.
 
-  Everything is static-shaped VPU work: width selection is a handful of
+  Everything is static-shaped elementwise work: width selection is a handful of
   tile reductions; packing is reshape + shift + or at each candidate width
   with a per-tile select; the only data movement is ONE uint8 transpose of
   the nibble grid each way. No scatter/gather anywhere.
@@ -156,8 +155,7 @@ def pack_ids(ids2d: jax.Array, n_valid, b: int, cape: int):
     ids_i = jnp.where(valid, ids2d.astype(jnp.int32), 0)
     nib_bm = jnp.minimum(ids_i, 15)  # (nblk, bs) int32
 
-    # ONE transpose to (tile, position, block) tiles. int32 lanes: XLA:TPU
-    # transposes sub-word (u8) data ~10x slower (measured 52 vs 7 ms).
+    # ONE transpose to (tile, position, block) tiles, on int32 values
     pad = t * b - nblk
     nib_p = jnp.pad(nib_bm, ((0, pad), (0, 0))) if pad else nib_bm
     tiles = jnp.swapaxes(nib_p.reshape(t, b, bs), 1, 2)  # (T, bs, B)
@@ -203,9 +201,8 @@ def pack_ids(ids2d: jax.Array, n_valid, b: int, cape: int):
 def pack_ids_with_ac(
     ids2d: jax.Array, dcac2d: jax.Array, n_valid, b: int, cape: int
 ):
-    """pack_ids + AC compaction sharing ONE chunk sort (the encode-chain
-    cost center: the two full-array chunk sorts were ~2/3 of device encode,
-    docs/benchmarks.md).
+    """pack_ids + AC compaction sharing ONE chunk sort (the DPK segment
+    encode of stream.py).
 
     Every AC escape (id == ESCAPE -> nibble 15) is also a DPK exception
     (its tile's width w satisfies 1 <= w <= 4, so 15 >= 2^w - 1), so one
@@ -216,25 +213,18 @@ def pack_ids_with_ac(
     of the cape-wide union rows by a second sort that is cw/cape times
     narrower than the one it replaces.
 
-    ids2d/dcac2d: the fused kernel's (nblk, bs) outputs. Returns
+    ids2d/dcac2d: the quantizer's (nblk, bs) bin ids and in-place stored
+    values (quantize.quantize / repair.verify_repair; column 0 holds the
+    DC coefficient). Returns
     (width (T,bs) u8, packed (T*bs, b//2) u8, exc_rows (nc,cape) u8,
     exc_counts (nc,) i32, ac_rows (nc,cape) f32, ac_counts (nc,) i32,
     dc (nblk,) f32, overflow () bool) — byte-identical streams to
     pack_ids + compaction.compact_chunked (tests/test_idpack.py).
     """
     from ..core.quantize import chunk_width
-    from . import dpk_fuse
 
     nblk, bs = ids2d.shape
     t = tiles_of(nblk, b)
-
-    cw0 = chunk_width(nblk * bs, bs)
-    if dpk_fuse.enabled() and dpk_fuse.encode_eligible(b, bs, cw0):
-        # one Pallas program per tile: nibble/width/pack + the unified
-        # butterfly compaction, byte-identical streams (ops/dpk_fuse.py)
-        return dpk_fuse.encode_fused(
-            ids2d, dcac2d, n_valid, b, min(cape, cw0), cw0
-        )
 
     row = jax.lax.broadcasted_iota(jnp.int32, (nblk, bs), 0)
     col = jax.lax.broadcasted_iota(jnp.int32, (nblk, bs), 1)
@@ -272,37 +262,21 @@ def pack_ids_with_ac(
     ids2 = ids_i.reshape(nc, cw)
     vals2 = dcac2d.reshape(nc, cw)
     exc_counts = jnp.sum(mask2, axis=-1, dtype=jnp.int32)
-    from . import shuffle
+    pos = jax.lax.broadcasted_iota(jnp.int32, (nc, cw), 1)
+    keys = jnp.where(mask2, (pos << 8) | ids2, _INTMAX)
+    skeys, svals = jax.lax.sort((keys, vals2), dimension=-1, num_keys=1)
+    v = skeys[:, :cape] != _INTMAX
+    exc_rows = jnp.where(v, skeys[:, :cape] & 255, 0).astype(jnp.uint8)
+    union_vals = jnp.where(v, svals[:, :cape], 0.0)
 
-    if (
-        shuffle.enabled()
-        and shuffle.eligible(cw)
-        # x64 traces recurse Mosaic's convert lowering (api._pallas_x64_
-        # guard); keep the sort pair on f64 full-width programs
-        and not jax.config.jax_enable_x64
-    ):
-        # Pallas butterfly: one kernel compacts the (id byte, value) pairs
-        # AND tightens the AC escapes out of the union — bit-identical to
-        # the sort pair below (ops/shuffle.py; tests/test_idpack.py)
-        exc_rows, ac_rows = shuffle.compact_unified(
-            mask2, ids2, vals2, cape, cape
-        )
-    else:
-        pos = jax.lax.broadcasted_iota(jnp.int32, (nc, cw), 1)
-        keys = jnp.where(mask2, (pos << 8) | ids2, _INTMAX)
-        skeys, svals = jax.lax.sort((keys, vals2), dimension=-1, num_keys=1)
-        v = skeys[:, :cape] != _INTMAX
-        exc_rows = jnp.where(v, skeys[:, :cape] & 255, 0).astype(jnp.uint8)
-        union_vals = jnp.where(v, svals[:, :cape], 0.0)
-
-        # stage 2: tighten the AC escapes (id byte == ESCAPE) from the union
-        esc2 = v & (exc_rows == jnp.uint8(C.ESCAPE))
-        pos2 = jax.lax.broadcasted_iota(jnp.int32, (nc, cape), 1)
-        keys2 = jnp.where(esc2, pos2, _INTMAX)
-        sk2, ac_rows = jax.lax.sort(
-            (keys2, union_vals), dimension=-1, num_keys=1
-        )
-        ac_rows = jnp.where(sk2 != _INTMAX, ac_rows, 0.0)
+    # stage 2: tighten the AC escapes (id byte == ESCAPE) from the union
+    esc2 = v & (exc_rows == jnp.uint8(C.ESCAPE))
+    pos2 = jax.lax.broadcasted_iota(jnp.int32, (nc, cape), 1)
+    keys2 = jnp.where(esc2, pos2, _INTMAX)
+    sk2, ac_rows = jax.lax.sort(
+        (keys2, union_vals), dimension=-1, num_keys=1
+    )
+    ac_rows = jnp.where(sk2 != _INTMAX, ac_rows, 0.0)
     # true per-chunk escape totals (not clipped by cape): drives the retry
     # flag and header.ac_count exactly like compact_chunked's counts
     esc_full = mask2 & (ids2 == C.ESCAPE)
@@ -371,8 +345,7 @@ def unpack_ids(
 
     # fold the exception-marker mask into the nibble word BEFORE the
     # transpose (bit 8), so one int32 transpose moves both and no
-    # block-major threshold grid is materialized (int32 lanes — u8
-    # transposes are ~10x slower on XLA:TPU)
+    # block-major threshold grid is materialized
     thr_col = jnp.where(wcol > 0, (1 << wcol) - 1, jnp.int32(-1))
     comb = nib | ((nib == thr_col[:, None]).astype(jnp.int32) << 8)
     comb_bm = jnp.swapaxes(comb.reshape(t, bs, b), 1, 2).reshape(t * b, bs)[

@@ -1,11 +1,9 @@
-"""Multi-host (pod-slice) orchestration.
+"""Multi-host (multi-process) orchestration.
 
 Single-controller sharding lives in parallel/sharding.py; this module adds
-the multi-process glue for real pod slices, following the standard JAX
-multi-host recipe. The reference has no distributed capability at all (its
-only concurrency is three pthreads, dctz-comp-lib.c:620-732) — this is the
-north-star new capability (BASELINE.json: >=1 TB/s aggregate on a pod
-slice).
+the multi-process glue, following the standard JAX multi-host recipe. The
+reference has no distributed capability at all (its only concurrency is
+three pthreads, dctz-comp-lib.c:620-732).
 
 Data flow — no host ever materializes the global array:
 
@@ -16,8 +14,8 @@ Data flow — no host ever materializes the global array:
     `jax.make_array_from_process_local_data` — a metadata operation, not a
     gather;
   * the device program is the same sharded encode as single-host:
-    encode_sharded's `lax.pmax/psum` collectives ride ICI within a host and
-    DCN across hosts (16 B for sf/mean, 512 B for the QT table, 4 B for the
+    encode_sharded's `lax.pmax/psum` collectives cross devices within a
+    host and the network across hosts (16 B for sf/mean, 512 B for the QT table, 4 B for the
     verify flag: negligible);
   * every host then reads ONLY its addressable output shards
     (`_local_rows`), entropy-codes them, and packs ONE v2 container of its
@@ -192,9 +190,6 @@ def compress_multihost(
     )
     if cfg.container != "v2":
         cfg = dataclasses.replace(cfg, container="v2")
-    from ..api import _resolve_ids_codec
-
-    cfg = _resolve_ids_codec(cfg)
     if jax.process_count() == 1:
         from ..api import compress_sharded
 
@@ -209,7 +204,9 @@ def compress_multihost(
 
     from ..ops import idpack
 
-    dpk = cfg.ids_codec == "device"
+    from .. import backend
+
+    dpk = backend.device_ids(cfg)
     quantum = idpack.B_DEFAULT if dpk else 1
     pid = jax.process_index()
     nproc = jax.process_count()
@@ -241,37 +238,23 @@ def compress_multihost(
         NamedSharding(mesh, P(sh.AXIS)), local, global_shape=(n_pad,)
     )
 
-    from ..core import quantize as qz
-    from ..ops import compaction as cp
-
-    layout = "chunked" if cp.use_chunked_compaction() else "global"
     n_dev = mesh.devices.size
 
-    def run(ac_capacity, cape=None):
+    def run(cape=None):
         return sh.encode_sharded(
             garr,
             n_real=n_total,
             cfg=_mh_device_cfg(cfg),
-            ac_capacity=ac_capacity,
             mesh=mesh,
-            compaction=layout,
             dpk=dpk,
             cape=cape,
         )
 
-    default_cap = n_pad // n_dev if layout == "global" else None
-    out = run(default_cap)
-    ac_over = layout == "chunked" and int(jax.device_get(out[4])) != 0
-    exc_over = dpk and int(jax.device_get(out[-1])) != 0
-    if ac_over or exc_over:
-        out = run(
-            qz.chunk_width(n_pad // n_dev, cfg.block_size)
-            if ac_over
-            else default_cap,
-            (1 << 20) if exc_over else None,
-        )
-    base, extra = out[:9], out[9:]
-    bin_ids, dc, ac_bufs, ac_counts, _ovf, sf, mean, qtable, _ok = base
+    out = run()
+    if dpk and int(jax.device_get(out[-1])) != 0:
+        out = run(1 << 20)  # exception-capacity overflow: full chunk width
+    base, extra = out[:8], out[8:]
+    bin_ids, dc, ac_bufs, ac_counts, sf, mean, qtable, _ok = base
     dpk_parts = None
     if dpk:
         dpk_parts = tuple(_local_rows(a) for a in extra[:5])
@@ -279,20 +262,15 @@ def compress_multihost(
     # addressable shards only — each host holds exactly its slice's rows
     bin_ids_l = _local_rows(bin_ids)
     dc_l = _local_rows(dc)
-    if layout == "chunked":
-        rows_l = _local_rows(ac_bufs)
-        counts_l = _local_rows(ac_counts)
-        ac_l = entropy.take_row_prefixes(rows_l, counts_l)
-    else:
-        rows_l = _local_rows(ac_bufs)
-        counts_l = _local_rows(ac_counts)
-        ac_l = (
-            np.concatenate(
-                [rows_l[d, : int(counts_l[d])] for d in range(rows_l.shape[0])]
-            )
-            if counts_l.sum()
-            else np.zeros((0,), rows_l.dtype)
+    rows_l = _local_rows(ac_bufs)
+    counts_l = _local_rows(ac_counts)
+    ac_l = (
+        np.concatenate(
+            [rows_l[d, : int(counts_l[d])] for d in range(rows_l.shape[0])]
         )
+        if counts_l.sum()
+        else np.zeros((0,), rows_l.dtype)
+    )
     sf_v = float(jax.device_get(sf))
     mean_v = float(jax.device_get(mean))
     qt = (
@@ -380,8 +358,8 @@ def decompress_multihost(stream: bytes | memoryview) -> LocalRestore:
     MONOLITHIC containers restore too: a v2 DPK container decodes by tile
     range (api._decompress_dpk_range — each host touches only its share of
     the bulk packed section, zero-copy on verbatim containers), so one big
-    single-shot container written anywhere can be restored in parallel by a
-    pod slice. Other monolithic formats (generic v2, v1) fall back to
+    single-shot container written anywhere can be restored in parallel by
+    several hosts. Other monolithic formats (generic v2, v1) fall back to
     full-decode-and-slice per host: correct, but every host pays the whole
     decode.
 
@@ -437,12 +415,7 @@ def _decompress_monolithic_local(data: memoryview) -> LocalRestore:
     v1 containers (no per-chunk counts to slice the AC stream by) decode
     fully on every host and slice.
     """
-    from ..api import (
-        _decompress_dpk_range,
-        _dpk_meta,
-        _tpu_like_backend,
-        decompress,
-    )
+    from ..api import _decompress_dpk_range, _dpk_meta, decompress
     from ..ops import idpack
 
     if jax.process_count() == 1:
@@ -456,13 +429,7 @@ def _decompress_monolithic_local(data: memoryview) -> LocalRestore:
         # crc work is O(range), not O(container). The generic fallback
         # below re-parses inside decompress() with the full sweep.
         header, streams, qtable, _cb = ct.parse_v2(data, chunk_crcs="defer")
-    f64_split = (
-        header is not None
-        and header.dtype == np.float64
-        and jax.config.jax_enable_x64
-        and _tpu_like_backend()
-    )
-    if header is not None and header.dpk and not f64_split:
+    if header is not None and header.dpk:
         n_stream, tile_b, cw, meta = _dpk_meta(
             header, streams, with_bytes=True
         )
@@ -483,7 +450,7 @@ def _decompress_monolithic_local(data: memoryview) -> LocalRestore:
         b = min(hi, n) - t0 * te
         return LocalRestore(local[a:b], lo, ())
 
-    # generic v2 / v1 / f64-split fallback: full decode, slice
+    # generic v2 / v1 fallback: full decode, slice
     out = decompress(data)
     bs = header.block_size if header is not None else 64
     lo, hi = host_slice(out.size, bs, 1)

@@ -1,23 +1,23 @@
-"""Multi-chip scaling: `shard_map` pipeline over a 1-D device mesh.
+"""Multi-device scaling: `shard_map` pipeline over a 1-D device mesh.
 
 The reference has NO distributed capability (its only concurrency is three
-deflate pthreads, dctz-comp-lib.c:620-732); pod-scale compression is the new
-capability this rebuild adds (SURVEY.md §2 "parallelism strategies",
-BASELINE.json north-star).
+deflate pthreads, dctz-comp-lib.c:620-732); sharded compression is the new
+capability this rebuild adds (SURVEY.md §2 "parallelism strategies").
 
-Design (scaling-book style: pick a mesh, annotate shardings, let XLA insert
-collectives):
+Design (pick a mesh, annotate shardings, let XLA insert collectives):
 
   * 1-D mesh axis "data": the flat array is block-sharded in multiples of
     BLK_SZ, so DCT blocks NEVER cross shard boundaries — the per-shard
     pipeline (scale -> DCT matmul -> quantize -> compact) is entirely local.
-  * Two tiny collectives ride ICI:
+    The mesh follows the algorithm alone: every device of a host reaches
+    every other at the same rate.
+  * Two tiny collectives cross devices:
       - `lax.pmax` of the local max|x| (8 bytes) -> global scaling factor;
       - QT mode only: `lax.pmax` of the 64-entry quantizer table (512 B),
         which must see pass-1 maxima from all shards before pass 2.
     The mean needs a `lax.psum` (8 bytes) for the container header.
   * Everything else stays shard-local; compressed segments gather to hosts
-    (device->host DMA, DCN at pod scale) where the entropy stage runs.
+    (device->host copies) where the entropy stage runs.
   * TP/PP/EP analogs: N/A for this workload — there is no model to partition;
     "sequence parallelism" maps to this array-length sharding (SURVEY.md §5).
 
@@ -38,6 +38,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import CodecConfig
+from .. import backend
 from ..core import quantize as qz
 from ..core import transform
 from ..core.stats import scaling_factor
@@ -59,7 +60,7 @@ def padded_size(
     return -(-n // quantum) * quantum
 
 
-def _local_encode(x_local, n_real, cfg, ac_capacity, axis_name, compaction):
+def _local_encode(x_local, n_real, cfg, axis_name):
     """Per-shard pipeline body (runs inside shard_map)."""
     amax = jax.lax.pmax(jnp.max(jnp.abs(x_local)), axis_name)
     total = jax.lax.psum(jnp.sum(x_local, dtype=x_local.dtype), axis_name)
@@ -69,16 +70,13 @@ def _local_encode(x_local, n_real, cfg, ac_capacity, axis_name, compaction):
     xs = x_local / sf
     n_local = xs.shape[0]  # multiple of block_size by construction
     coeffs = transform.block_dct_flat(
-        xs, cfg.block_size, precision=transform.prec_of(cfg.dct_precision)
+        xs, cfg.block_size, precision=backend.dct_precision(cfg.dct_precision)
     )
-    q = qz.encode(
-        coeffs, n_local, cfg, ac_capacity, axis_name=axis_name,
-        compaction=compaction,
-    )
+    q = qz.encode(coeffs, n_local, cfg, axis_name=axis_name)
     ok = jnp.bool_(True)
     if cfg.verify:
         # pointwise tolerance needs the GLOBAL value range over real
-        # elements only — two more 8-byte pmax/pmin on ICI; the repair
+        # elements only — two more 8-byte pmax/pmin; the repair
         # itself is entirely shard-local (blocks never cross shards).
         from ..ops import repair
 
@@ -110,27 +108,19 @@ def _local_encode(x_local, n_real, cfg, ac_capacity, axis_name, compaction):
             tol,
         )
         ok = jax.lax.pmin(ok.astype(jnp.int32), axis_name).astype(jnp.bool_)
-        q = qz.repack(
-            ids2, dense, q.dc, q.qtable, n_local, cfg, ac_capacity,
-            compaction,
-        )
+        q = qz.repack(ids2, dense, q.dc, q.qtable, n_local)
     return q, sf, mean, ok
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_real", "cfg", "ac_capacity", "mesh", "compaction", "dpk", "cape",
-    ),
+    jax.jit, static_argnames=("n_real", "cfg", "mesh", "dpk", "cape")
 )
 def encode_sharded(
     x_padded,
     *,
     n_real: int,
     cfg: CodecConfig,
-    ac_capacity: int | None,
     mesh: Mesh,
-    compaction: str = "global",
     dpk: bool = False,
     cape: int | None = None,
 ):
@@ -138,116 +128,26 @@ def encode_sharded(
 
     x_padded: (n_pad,) zero-padded to a multiple of n_devices * block_size,
     sharded (or shardable) over the mesh. Returns globally-assembled views:
-    bin_ids (n_pad/bs, bs), dc (n_pad/bs,), the AC stream in the requested
-    layout (global: per-shard (n_dev, cap) buffers + (n_dev,) counts;
-    chunked: (nchunks, capc) + per-chunk counts + replicated overflow flag),
-    plus replicated sf / mean / qtable / verify flag.
+    bin_ids (n_pad/bs, bs), dc (n_pad/bs,), the AC stream as per-shard
+    (n_dev, shard) buffers + (n_dev,) counts, plus replicated sf / mean /
+    qtable / verify flag.
 
     dpk=True additionally runs the per-shard device id-stream coder
     (ops/idpack.py) and appends (widths, packed rows, exception rows,
     exception counts, AC chunk counts, exception overflow): every array is
     tile-/chunk-major along the shard axis, so the P(AXIS) outputs ARE the
-    single-chip global layout — no reordering anywhere. Requires the shard
+    single-device global layout — no reordering anywhere. Requires the shard
     length to be a multiple of block_size * idpack.B_DEFAULT.
     """
     qt = cfg.mode == "qt"
 
-    from ..ops import dpk_fuse, idpack
-
-    shard_elems = x_padded.shape[0] // mesh.devices.size
-    use_fused = (
-        dpk
-        and not qt
-        and compaction == "chunked"
-        and x_padded.dtype == jnp.float32
-        and dpk_fuse.enabled()
-        and dpk_fuse.encode_eligible(
-            idpack.B_DEFAULT,
-            cfg.block_size,
-            qz.chunk_width(shard_elems, cfg.block_size),
-            cfg.nbins,
-        )
-    )
-
-    def body_fused(x_local):
-        """Per-shard single-kernel encode (ops/dpk_fuse.encode_x_fused) —
-        streams byte-identical to the XLA body below; the only cross-chip
-        traffic stays the scalar sf/mean/tol/ok collectives."""
-        from ..core.stats import scaling_factor
-
-        n_local = x_local.shape[0]
-        amax = jax.lax.pmax(jnp.max(jnp.abs(x_local)), AXIS)
-        total = jax.lax.psum(jnp.sum(x_local, dtype=x_local.dtype), AXIS)
-        mean = total / jnp.asarray(n_real, x_local.dtype)
-        sf = scaling_factor(amax, cfg.sf_adj)
-        idx = jax.lax.axis_index(AXIS)
-        if cfg.verify:
-            from ..ops import repair
-
-            gpos = idx * n_local + jnp.arange(n_local)
-            real = gpos < n_real
-            vmax = jax.lax.pmax(
-                jnp.max(jnp.where(real, x_local, -jnp.inf)), AXIS
-            )
-            vmin = jax.lax.pmin(
-                jnp.min(jnp.where(real, x_local, jnp.inf)), AXIS
-            )
-            tol = (
-                (vmax - vmin)
-                * jnp.asarray(cfg.error_bound, x_local.dtype)
-                * repair._SLACK
-            )
-            nv_local = jnp.clip(n_real - idx * n_local, 0, n_local)
-        else:
-            tol = jnp.float32(0)
-            nv_local = jnp.asarray(n_local)
-        cw = qz.chunk_width(n_local, cfg.block_size)
-        (width, packed, exc_rows, exc_counts, ac_rows, ac_counts, dc,
-         ovf, ok) = dpk_fuse.encode_x_fused(
-            x_local, sf, tol, nv_local, cfg.error_bound,
-            min(cape or idpack.CAPE, cw), cw, cfg.verify, brsf=cfg.brsf,
-            dct_precision=cfg.dct_precision,
-        )
-        ovf = jax.lax.pmax(ovf.astype(jnp.int32), AXIS)
-        ok = (
-            jax.lax.pmin(ok.astype(jnp.int32), AXIS).astype(jnp.bool_)
-            if cfg.verify
-            else jnp.bool_(True)
-        )
-        # bin_ids is part of the contract but unused for DPK containers
-        # beyond its padded length — emit zeros
-        bin_ids = jnp.zeros(
-            (n_local // cfg.block_size, cfg.block_size), jnp.uint8
-        )
-        qtable = jnp.zeros((cfg.block_size,), x_local.dtype)
-        return (
-            bin_ids, dc, ac_rows, ac_counts, ovf, sf, mean, qtable, ok,
-            width, packed, exc_rows, exc_counts, ac_counts, ovf,
-        )
-
     def body(x_local):
-        q, sf, mean, ok = _local_encode(
-            x_local, n_real, cfg, ac_capacity, AXIS, compaction
-        )
+        q, sf, mean, ok = _local_encode(x_local, n_real, cfg, AXIS)
         qtable = q.qtable if qt else jnp.zeros((cfg.block_size,), x_local.dtype)
-        if compaction == "chunked":
-            overflow = jax.lax.pmax(q.overflowed.astype(jnp.int32), AXIS)
-            out = (
-                q.bin_ids, q.dc, q.ac_buf, q.ac_count, overflow, sf, mean,
-                qtable, ok,
-            )
-        else:
-            out = (
-                q.bin_ids,
-                q.dc,
-                q.ac_buf[None, :],
-                q.ac_count[None],
-                jnp.int32(0),
-                sf,
-                mean,
-                qtable,
-                ok,
-            )
+        out = (
+            q.bin_ids, q.dc, q.ac_buf[None, :], q.ac_count[None], sf, mean,
+            qtable, ok,
+        )
         if not dpk:
             return out
         from ..ops import idpack
@@ -266,26 +166,24 @@ def encode_sharded(
         exc_ovf = jax.lax.pmax(exc_ovf.astype(jnp.int32), AXIS)
         return out + (width, packed, exc_rows, exc_counts, ac_counts, exc_ovf)
 
-    specs = [P(AXIS)] * 4 + [P()] * 5
+    specs = [P(AXIS)] * 4 + [P()] * 4
     if dpk:
         specs += [P(AXIS)] * 5 + [P()]
-    out = jax.shard_map(
-        body_fused if use_fused else body,
+    return jax.shard_map(
+        body,
         mesh=mesh,
         in_specs=P(AXIS),
         out_specs=tuple(specs),
-        check_vma=False,  # pallas out_shapes carry no vma under shard_map
     )(x_padded)
-    return out
 
 
 @functools.partial(
-    jax.jit, static_argnames=("n_pad", "cfg", "dtype", "mesh", "ac_layout")
+    jax.jit, static_argnames=("n_pad", "cfg", "dtype", "mesh")
 )
 def decode_sharded(
     bin_ids,
     dc,
-    ac_shards,
+    ac_rows,
     sf,
     qtable,
     *,
@@ -293,29 +191,25 @@ def decode_sharded(
     cfg: CodecConfig,
     dtype: str,
     mesh: Mesh,
-    ac_layout: str = "global",
 ):
     """Sharded decompression device program.
 
-    bin_ids: (n_pad/bs, bs) sharded over rows. ac_shards: the AC stream,
-    pre-split on host — global layout: (n_dev, cap), one row per shard;
-    chunked layout: (nchunks, capc) rows sharded over the mesh (per-chunk
-    counts are recomputable from bin_ids alone). Returns the flat
+    bin_ids: (n_pad/bs, bs) sharded over rows. ac_rows: the AC stream as
+    per-chunk padded rows (n_pad/cw, capc), cw dividing the shard length, so
+    each shard holds the rows of its own chunks. Returns the flat
     reconstructed padded array, sharded over the mesh.
     """
 
     def body(ids_local, dc_local, ac_local, sf_rep, qtable_rep):
         n_local = ids_local.shape[0] * ids_local.shape[1]
-        ac = ac_local[0] if ac_layout == "global" else ac_local
         coeffs = qz.decode(
             ids_local,
             dc_local,
-            ac,
+            ac_local,
             qtable_rep if cfg.mode == "qt" else None,
             n_local,
             cfg,
             jnp.dtype(dtype),
-            ac_layout,
         )
         x = transform.block_idct_flat(coeffs)
         return x * sf_rep.astype(x.dtype)
@@ -325,8 +219,7 @@ def decode_sharded(
         mesh=mesh,
         in_specs=(P(AXIS), P(AXIS), P(AXIS), P(), P()),
         out_specs=P(AXIS),
-        check_vma=False,  # pallas out_shapes carry no vma under shard_map
-    )(bin_ids, dc, ac_shards, sf, qtable)
+    )(bin_ids, dc, ac_rows, sf, qtable)
 
 
 @functools.partial(
@@ -358,35 +251,22 @@ def decode_sharded_dpk(
     replicated operands are the 4-byte sf and the QT qtable. The caller
     pads to a tile multiple of n_devices (synthetic zero tiles decode to
     zero blocks: width 0 rows unpack to all-center ids and consume no
-    exceptions). Per shard the same program as the single-chip path runs:
+    exceptions). Per shard the same program as the single-device path runs:
     unpack (ops/idpack.py) + the XLA decode chain."""
-    from ..ops import dpk_fuse, idpack
+    from ..ops import idpack
 
     bs = cfg.block_size
     n_dev = mesh.devices.size
     t_l = width.shape[0] // n_dev
     n_local = t_l * tile_b * bs
 
-    use_fused = (
-        dpk_fuse.enabled()
-        and dpk_fuse.decode_eligible(cfg, dtype, tile_b, cw, qtable)
-    )
-
     def body(w_l, p_l, e_l, dc_l, ac_l, sf_rep, qt_rep):
         qt = qt_rep if cfg.mode == "qt" else None
-        if use_fused:
-            # the single-kernel decode per shard (ops/dpk_fuse.py) — the
-            # same program the single-chip path dispatches; bit-identical
-            # to the chain below
-            x = dpk_fuse.decode_fused(
-                w_l, p_l, e_l, ac_l, dc_l, sf_rep, cfg, cw, qt
-            )
-            return x[:n_local]
         bin_ids = idpack.unpack_ids(
             w_l, p_l, e_l, n_local // bs, bs, tile_b, cw
         )
         coeffs = qz.decode(
-            bin_ids, dc_l, ac_l, qt, n_local, cfg, jnp.dtype(dtype), "chunked"
+            bin_ids, dc_l, ac_l, qt, n_local, cfg, jnp.dtype(dtype)
         )
         x = transform.block_idct_flat(coeffs)
         return x * sf_rep.astype(x.dtype)
@@ -401,7 +281,6 @@ def decode_sharded_dpk(
         mesh=mesh,
         in_specs=(P(AXIS),) * 5 + (P(), P()),
         out_specs=P(AXIS),
-        check_vma=False,  # pallas out_shapes carry no vma under shard_map
     )(width, rows, exc_rows, dc, ac_rows, sf, qt_in)
 
 

@@ -25,10 +25,9 @@ from typing import Iterator
 class StageTimer:
     """Accumulates named stage durations; reentrant stages sum up.
 
-    sync=True inserts a scalar device readback at device-stage boundaries so
-    async dispatch time is attributed to the right stage (block_until_ready
-    does not synchronize on some backends — see CLAUDE.md); leave False in
-    production paths to keep dispatch fully asynchronous.
+    sync=True waits for the device (jax.block_until_ready) at device-stage
+    boundaries so async dispatch time is attributed to the right stage;
+    leave False in production paths to keep dispatch fully asynchronous.
     """
 
     def __init__(self, sync: bool = False) -> None:

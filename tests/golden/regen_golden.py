@@ -48,7 +48,7 @@ CONFIGS = {
         mode="qt", container="v2", chunk_bytes=2048, ids_codec="device"
     ),
     # the DC-delta state (Header.dcd) — opt-in (cfg.dc_delta; measured a
-    # wash on the available workloads, docs/benchmarks.md) but both flag
+    # wash on the available workloads) but both flag
     # states stay golden-pinned
     "golden_v2_ec_f32_dpk_dcd": dict(
         mode="ec", container="v2", chunk_bytes=2048, ids_codec="device",

@@ -125,20 +125,3 @@ def test_rate_sample_is_block_aligned_and_spread():
     assert s.size % 64 == 0
     # the sample must include material from the array's tail half
     assert float(s.max()) > x.size * 0.5
-
-
-def test_fallback_warning_once(monkeypatch):
-    monkeypatch.setattr(api, "_FORCE_F64_FAST", True)  # pretend TPU backend
-    api._FALLBACK_WARNED.clear()
-    x = np.ones(1 << 20, np.float32)
-    cfg = CodecConfig(
-        mode="ec", error_bound=1e-3, container="v2", block_size=32,
-        segment_elems=0,
-    )
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        dctz_tpu.compress(x, config=cfg)
-        dctz_tpu.compress(x, config=cfg)
-    msgs = [str(m.message) for m in w if "XLA chain" in str(m.message)]
-    assert len(msgs) == 1, msgs
-    assert "block_size 32" in msgs[0]

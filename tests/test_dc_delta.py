@@ -1,6 +1,6 @@
 """DC-delta coding (container.Header.dcd, round 5): lossless u32 deltas
 of the DC stream, gated by cfg.dc_delta (default OFF — measured a wash on
-the available workloads, docs/benchmarks.md) — every decode path must
+the available workloads) — every decode path must
 invert it exactly."""
 
 import io

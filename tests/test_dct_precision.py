@@ -2,12 +2,10 @@
 
 Only the forward transform relaxes — verify-repair and the decoder
 reconstruct with the same HIGHEST IDCT either way, so cfg.verify keeps the
-pointwise guarantee bit-for-bit intact. On CPU the lax precision enum is a
-no-op, so these tests pin the PLUMBING (config validation, every encode
-path accepting the knob, the fused kernel's explicit bf16x3 arm) and the
-guarantee; the speed numbers live in docs/benchmarks.md (measured on v5e:
-DCT stage 0.24 -> 0.13 ms/128 MiB on the XLA wide matmul, ~2.6% end-to-end
-on the VPU-bound fused kernel)."""
+pointwise guarantee bit-for-bit intact. "high" is pinned to the explicit
+DotAlgorithmPreset.BF16_BF16_F32_X3 (backend.dct_precision); these tests pin
+the PLUMBING (config validation, every encode path accepting the knob) and
+the guarantee. chip_smoke.py compiles the algorithm on the GPU."""
 
 import io
 
@@ -45,34 +43,22 @@ def test_high_roundtrip_verified(mode, ids_codec):
 
 
 def test_high_fused_kernel_bf16x3_arm():
-    """The explicit bf16x3 decomposition in the Pallas x-input kernel
-    (interpret mode): bound guaranteed, streams decodable, and the bin ids
-    agree with the HIGHEST arm except at borderline coefficients."""
-    import jax
-
-    from dctz_tpu.ops import dpk_fuse
-
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    try:
-        x = _signal(1 << 16)
-        blobs = {}
-        for prec in ("highest", "high"):
-            cfg = CodecConfig(
-                mode="ec", error_bound=1e-3, container="v2",
-                ids_codec="device", verify=True, dct_precision=prec,
-                segment_elems=0,
-            )
-            blobs[prec] = dctz_tpu.compress(x, config=cfg)
-            y = dctz_tpu.decompress(blobs[prec])
-            tol = 1e-3 * (x.max() - x.min())
-            assert np.abs(y - x).max() <= tol, prec
-        # same container format; the payload may differ at borderline bins
-        assert blobs["high"][:8] == blobs["highest"][:8]
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        jax.config.update("jax_enable_x64", old_x64)
+    """The pinned bf16x3 algorithm on the device-coded path: bound
+    guaranteed, streams decodable, same container format as HIGHEST."""
+    x = _signal(1 << 16)
+    blobs = {}
+    for prec in ("highest", "high"):
+        cfg = CodecConfig(
+            mode="ec", error_bound=1e-3, container="v2",
+            ids_codec="device", verify=True, dct_precision=prec,
+            segment_elems=0,
+        )
+        blobs[prec] = dctz_tpu.compress(x, config=cfg)
+        y = dctz_tpu.decompress(blobs[prec])
+        tol = 1e-3 * (x.max() - x.min())
+        assert np.abs(y - x).max() <= tol, prec
+    # same container format; the payload may differ at borderline bins
+    assert blobs["high"][:8] == blobs["highest"][:8]
 
 
 def test_high_segment_stream():

@@ -23,6 +23,31 @@ def _coeff_grid(rng, nblk=32, bs=64, scale=0.5):
     return c
 
 
+def _escapes(q, n):
+    """Row-major escaped AC positions of q's bin ids (the stream order)."""
+    ids = np.asarray(q.bin_ids)
+    pos = np.arange(ids.size).reshape(ids.shape)
+    return (ids == ESCAPE) & (pos % ids.shape[1] >= 1) & (pos < n)
+
+
+def _chunk_rows(q, n):
+    """The global AC stream of q re-padded into per-chunk rows, as the
+    decompress host stage does (entropy.pad_row_prefixes)."""
+    from dctz_tpu.core import entropy
+
+    cw = qz.chunk_width(q.bin_ids.size, q.bin_ids.shape[1])
+    counts = _escapes(q, n).reshape(-1, cw).sum(axis=1)
+    ac = np.asarray(q.ac_buf[: int(q.ac_count)])
+    return jnp.asarray(entropy.pad_row_prefixes(ac, counts, cw, ac.dtype))
+
+
+def _decode(q, n, cfg):
+    return np.asarray(
+        qz.decode(q.bin_ids, q.dc, _chunk_rows(q, n), q.qtable, n, cfg,
+                  jnp.float64)
+    )
+
+
 @pytest.mark.parametrize("mode", ["ec", "qt"])
 def test_roundtrip_bound_in_coefficient_domain(mode):
     rng = np.random.default_rng(0)
@@ -33,9 +58,7 @@ def test_roundtrip_bound_in_coefficient_domain(mode):
     n = nblk * bs
 
     q = qz.encode(jnp.asarray(coeffs), n, cfg)
-    rec = np.asarray(
-        qz.decode(q.bin_ids, q.dc, q.ac_buf, q.qtable, n, cfg, jnp.float64)
-    )
+    rec = _decode(q, n, cfg)
 
     ids = np.asarray(q.bin_ids)
     ac_mask = np.ones((nblk, bs), bool)
@@ -138,65 +161,72 @@ def test_qt_all_outliers_stay_escaped():
 
 @pytest.mark.parametrize("mode", ["ec", "qt"])
 def test_chunked_compaction_matches_global(mode):
-    """The TPU chunk-local compaction (ops/compaction.py) must produce the
-    exact same AC stream as the global cumsum+scatter path."""
+    """The chunk-local compaction (ops/compaction.py, the DPK containers'
+    AC rows) must produce the exact same AC stream as the global
+    cumsum+scatter compaction of qz.encode."""
+    from dctz_tpu.ops import compaction as cp
+
     rng = np.random.default_rng(5)
     cfg = CodecConfig(mode=mode, error_bound=1e-3)
     coeffs = _coeff_grid(rng, nblk=64)
     n = coeffs.size
-    qg = qz.encode(jnp.asarray(coeffs), n, cfg, compaction="global")
-    qc = qz.encode(jnp.asarray(coeffs), n, cfg, compaction="chunked",
-                   ac_capacity=qz.chunk_width(n, 64))
-    np.testing.assert_array_equal(np.asarray(qg.bin_ids), np.asarray(qc.bin_ids))
-    counts = np.asarray(qc.ac_count)
-    capc = qc.ac_buf.shape[1]
-    sel = np.arange(capc)[None, :] < counts[:, None]
-    ac_chunked = np.asarray(qc.ac_buf)[sel]
+    qg = qz.encode(jnp.asarray(coeffs), n, cfg)
+    ids, stored, _dc, _qt = qz.quantize(jnp.asarray(coeffs), n, cfg)
+    np.testing.assert_array_equal(np.asarray(qg.bin_ids), np.asarray(ids))
+    esc = np.asarray(ids) == ESCAPE
+    esc[:, 0] = False
+    cw = qz.chunk_width(n, 64)
+    rows, counts, ovf = cp.compact_chunked(
+        jnp.asarray(esc.reshape(-1)), stored.reshape(-1), cw, cw
+    )
+    counts = np.asarray(counts)
+    sel = np.arange(cw)[None, :] < counts[:, None]
     np.testing.assert_array_equal(
-        np.asarray(qg.ac_buf[: int(qg.ac_count)]), ac_chunked
+        np.asarray(qg.ac_buf[: int(qg.ac_count)]), np.asarray(rows)[sel]
     )
     assert int(qg.ac_count) == int(counts.sum())
-    assert not bool(qc.overflowed)
+    assert not bool(ovf)
 
 
 @pytest.mark.parametrize("mode", ["ec", "qt"])
 def test_chunked_decode_matches_global(mode):
+    """Decoding from per-chunk rows places every entry of the global AC
+    stream exactly where the k-th-escape-reads-k-th-entry rule puts it
+    (the placement done here in NumPy, decoded through the dense layout)."""
     rng = np.random.default_rng(6)
     cfg = CodecConfig(mode=mode, error_bound=1e-3)
     coeffs = _coeff_grid(rng, nblk=64)
     n = coeffs.size
-    q = qz.encode(jnp.asarray(coeffs), n, cfg, compaction="global")
+    q = qz.encode(jnp.asarray(coeffs), n, cfg)
     ac = np.asarray(q.ac_buf[: int(q.ac_count)])
+    dense = np.zeros(coeffs.shape, np.float32)
+    dense[_escapes(q, n)] = ac
     rec_g = np.asarray(
-        qz.decode(q.bin_ids, q.dc, q.ac_buf, q.qtable, n, cfg, jnp.float64)
-    )
-    # re-pad the stream into per-chunk rows like the decompress host stage
-    cw = qz.chunk_width(n, 64)
-    esc = np.asarray(q.bin_ids) == 255
-    esc[:, 0] = False
-    counts = esc.reshape(-1, cw).sum(axis=1)
-    capc = cw
-    padded = np.zeros((counts.size, capc), np.float32)
-    padded[np.arange(capc)[None, :] < counts[:, None]] = ac
-    rec_c = np.asarray(
         qz.decode(
-            q.bin_ids, q.dc, jnp.asarray(padded), q.qtable, n, cfg,
-            jnp.float64, ac_layout="chunked",
+            q.bin_ids, q.dc, jnp.asarray(dense), q.qtable, n, cfg,
+            jnp.float64, ac_layout="dense",
         )
     )
-    np.testing.assert_array_equal(rec_g, rec_c)
+    np.testing.assert_array_equal(rec_g, _decode(q, n, cfg))
 
 
 def test_chunked_overflow_flag():
+    from dctz_tpu.ops import compaction as cp
+
     cfg = CodecConfig(mode="ec", error_bound=1e-3)
     coeffs = np.full((64, 64), 1e6)  # every AC escapes
-    q = qz.encode(jnp.asarray(coeffs), 64 * 64, cfg, compaction="chunked",
-                  ac_capacity=16)
-    assert bool(q.overflowed)
-    q2 = qz.encode(jnp.asarray(coeffs), 64 * 64, cfg, compaction="chunked",
-                   ac_capacity=qz.chunk_width(64 * 64, 64))
-    assert not bool(q2.overflowed)
-    assert int(np.asarray(q2.ac_count).sum()) == 64 * 63
+    ids, stored, _dc, _qt = qz.quantize(jnp.asarray(coeffs), 64 * 64, cfg)
+    esc = (np.asarray(ids) == ESCAPE) & (np.arange(64)[None, :] >= 1)
+    cw = qz.chunk_width(64 * 64, 64)
+    _r, _c, ovf = cp.compact_chunked(
+        jnp.asarray(esc.reshape(-1)), stored.reshape(-1), cw, 16
+    )
+    assert bool(ovf)
+    _r, counts, ovf2 = cp.compact_chunked(
+        jnp.asarray(esc.reshape(-1)), stored.reshape(-1), cw, cw
+    )
+    assert not bool(ovf2)
+    assert int(np.asarray(counts).sum()) == 64 * 63
 
 
 def test_escape_id_boundary_clamp():
@@ -209,7 +239,5 @@ def test_escape_id_boundary_clamp():
     q = qz.encode(jnp.asarray(coeffs), 64, cfg)
     ids = np.asarray(q.bin_ids)
     assert ids[0, 1] != ESCAPE
-    rec = np.asarray(
-        qz.decode(q.bin_ids, q.dc, q.ac_buf, q.qtable, 64, cfg, jnp.float64)
-    )
+    rec = _decode(q, 64, cfg)
     assert abs(rec[0, 1] - cfg.range_max) <= 2 * cfg.error_bound

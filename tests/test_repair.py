@@ -83,38 +83,37 @@ def test_sharded_verify_repairs_bound():
     assert dctz_tpu.evaluate(x, y, 1e-3)["bound_satisfied"]
 
 
-def test_repair_fused_wrapper():
-    """_repair_fused (the TPU fused path's repair program, pure XLA) must
-    fix the bound given the fused pipeline's (ids, dc) inputs."""
-    import jax
+def test_repair_chunked_decode():
+    """verify_repair's (ids, stored) outputs packed as a DPK stream segment
+    does (idpack.pack_ids_with_ac) and decoded through the chunked AC rows
+    hold the bound on the canonical violator."""
     import jax.numpy as jnp
 
     from dctz_tpu import api
     from dctz_tpu.core import quantize as qz
+    from dctz_tpu.core import transform
+    from dctz_tpu.ops import idpack, repair
 
     x64 = _load("sedov")
     n = (x64.size // 1024) * 1024
-    x = x64[:n].astype(np.float32)
+    x = jnp.asarray(x64[:n].astype(np.float32))
     cfg = api._device_cfg(CodecConfig(mode="ec", error_bound=1e-3))
-    # stand-in for the fused kernel's outputs: the XLA encoder's ids/dc
-    q, stats = api._encode_device(jnp.asarray(x), n, cfg, None)
-    ids2, ac_chunks, counts, ovf, ok = api._repair_fused(
-        jnp.asarray(x), stats.sf, q.bin_ids, q.dc, n, cfg, None
+    sf = jnp.max(jnp.abs(x)) / 4.0
+    coeffs = transform.block_dct_flat(x / sf, 64)
+    ids, stored, dc, qt = qz.quantize(coeffs, n, cfg)
+    ids2, stored2, ok = repair.verify_repair(
+        x, coeffs, sf, ids, dc, qt, n, n, cfg
     )
     assert bool(ok)
-    # decode via the chunked layout, exactly like a TPU decompress
-    capc = ac_chunks.shape[1]
-    cn, = counts.shape
-    y = api._decode_device(
-        ids2,
-        q.dc,
-        ac_chunks,
-        n,
-        cfg,
-        "float32",
-        "chunked",
-        False,
-        stats.sf.astype(jnp.float32),
-        None,
+    w, pk, exc, _ec, ac_rows, _acn, dc2, ovf = idpack.pack_ids_with_ac(
+        ids2, stored2, n, idpack.B_DEFAULT, 1 << 20
     )
-    assert dctz_tpu.evaluate(x, np.asarray(y), 1e-3)["bound_satisfied"]
+    assert not bool(ovf)
+    cw = qz.chunk_width(n, 64)
+    y = api._decode_device_dpk(
+        w, pk, exc, dc2, ac_rows, n, cfg, "float32",
+        idpack.B_DEFAULT, cw, sf, None,
+    )
+    assert dctz_tpu.evaluate(np.asarray(x), np.asarray(y), 1e-3)[
+        "bound_satisfied"
+    ]

@@ -81,9 +81,7 @@ def test_sharded_collectives_only_for_sf_and_qtable(mesh):
         np.ones(n_pad, np.float32),
         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(sh.AXIS)),
     )
-    lowered = sh.encode_sharded.lower(
-        x, n_real=n_pad, cfg=cfg, ac_capacity=n_pad // 8, mesh=mesh
-    )
+    lowered = sh.encode_sharded.lower(x, n_real=n_pad, cfg=cfg, mesh=mesh)
     hlo = lowered.compile().as_text()
     assert "all-to-all" not in hlo
     assert hlo.count("all-gather") == 0
@@ -105,7 +103,7 @@ def test_compress_sharded_device_resident(mesh):
     cfg = CodecConfig(mode="ec", error_bound=1e-3, container="v2")
     x_dev = jnp.asarray(x)
     # host<->device transfers are forbidden; device-to-device reshard
-    # (the ICI path on real meshes) is exactly what the prep should do
+    # (device-to-device on real meshes) is exactly what the prep should do
     with jax.transfer_guard_host_to_device("disallow"), \
             jax.transfer_guard_device_to_host("disallow"):
         x_sharded, n_pad = sh.shard_input_device(x_dev, mesh, 64)
@@ -135,3 +133,25 @@ def test_mesh_padding_math():
     assert sh.padded_size(1, 8, 64) == 512
     assert sh.padded_size(512, 8, 64) == 512
     assert sh.padded_size(513, 8, 64) == 1024
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+def test_decompress_sharded_chunk_rows(mode, n_dev):
+    """decompress_sharded of a host-coded (non-DPK) container re-pads the
+    AC stream into per-chunk rows that shard with the ids: on an
+    escape-heavy array whose length needs mesh padding it returns exactly
+    the single-device decode, on every mesh size."""
+    from dctz_tpu.config import CodecConfig
+
+    rng = np.random.default_rng(10 + n_dev)
+    n = 64 * 8 * 48 + 77
+    x = np.sin(np.arange(n) * 0.03) * 40 + rng.standard_normal(n)
+    x[rng.random(n) < 0.02] *= 300.0  # many escapes in some chunks
+    x = x.astype(np.float32)
+    cfg = CodecConfig(mode=mode, error_bound=1e-4, container="v2")
+    m = sh.make_mesh(jax.devices()[:n_dev])
+    blob = compress_sharded(x, config=cfg, mesh=m)
+    y = decompress_sharded(blob, mesh=m)
+    np.testing.assert_array_equal(y, dctz_tpu.decompress(blob))
+    assert dctz_tpu.evaluate(x, y, 1e-4, len(blob))["bound_satisfied"]

@@ -55,52 +55,42 @@ def test_random_config_roundtrips(seed):
 
 @pytest.mark.parametrize("seed", range(2))
 def test_random_config_roundtrips_fused(seed):
-    """Round-3 knob soak: fused kernels forced on (interpret), device id
-    codec, verify mode, pipelined segment streams."""
-    import jax
-
-    from dctz_tpu.ops import dpk_fuse
-
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    try:
-        rng = np.random.default_rng(7000 + seed)
-        for _ in range(5):
-            n = int(rng.integers(1000, 200000))
-            kind = int(rng.integers(0, 3))
-            if kind == 0:
-                x = rng.standard_normal(n) * 10.0
-            elif kind == 1:
-                x = np.sin(np.linspace(0, 80, n)) * 100
+    """Knob soak on the device id codec (ids_codec="device"): verify mode,
+    monolithic and pipelined segment streams."""
+    rng = np.random.default_rng(7000 + seed)
+    for _ in range(5):
+        n = int(rng.integers(1000, 200000))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            x = rng.standard_normal(n) * 10.0
+        elif kind == 1:
+            x = np.sin(np.linspace(0, 80, n)) * 100
+        else:
+            x = rng.standard_normal(n) * 0.01
+            x[rng.random(n) < 0.01] *= 1e4
+        x = x.astype(np.float32)
+        eb = float(rng.choice([1e-3, 1e-4]))
+        cfg = CodecConfig(
+            mode=str(rng.choice(["ec", "qt"])),
+            error_bound=eb,
+            container="v2",
+            ids_codec="device",
+            verify=bool(rng.integers(0, 2)),
+            segment_elems=(
+                int(rng.choice([1 << 15, 1 << 16]))
+                if rng.integers(0, 2)
+                else None
+            ),
+        )
+        blob = dctz_tpu.compress(x, config=cfg)
+        y = dctz_tpu.decompress(blob)
+        assert y.shape == x.shape and y.dtype == x.dtype
+        span = float(x.max() - x.min())
+        if span > 0:
+            rel = float(np.abs(x - y).max()) / span
+            if cfg.verify and cfg.mode == "ec":
+                assert rel <= eb * 1.001, (rel, cfg)
             else:
-                x = rng.standard_normal(n) * 0.01
-                x[rng.random(n) < 0.01] *= 1e4
-            x = x.astype(np.float32)
-            eb = float(rng.choice([1e-3, 1e-4]))
-            cfg = CodecConfig(
-                mode=str(rng.choice(["ec", "qt"])),
-                error_bound=eb,
-                container="v2",
-                ids_codec="device",
-                verify=bool(rng.integers(0, 2)),
-                segment_elems=(
-                    int(rng.choice([1 << 15, 1 << 16]))
-                    if rng.integers(0, 2)
-                    else None
-                ),
-            )
-            blob = dctz_tpu.compress(x, config=cfg)
-            y = dctz_tpu.decompress(blob)
-            assert y.shape == x.shape and y.dtype == x.dtype
-            span = float(x.max() - x.min())
-            if span > 0:
-                rel = float(np.abs(x - y).max()) / span
-                if cfg.verify and cfg.mode == "ec":
-                    assert rel <= eb * 1.001, (rel, cfg)
-                else:
-                    # QT verify has a documented qtable precision floor
-                    assert rel <= max(eb * 20, 1e-3), (rel, cfg)
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        jax.config.update("jax_enable_x64", old_x64)
+                # QT verify has a documented qtable precision floor
+                assert rel <= max(eb * 20, 1e-3), (rel, cfg)
+

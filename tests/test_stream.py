@@ -84,59 +84,41 @@ def test_stream_bad_magic():
 
 
 def test_stream_dpk_fused_segments_roundtrip():
-    """The DPK fused-segment writer + overlapped reader (ops/dpk_fuse in
-    the stream pipeline): bound holds, frames are DPK v2 containers."""
-    import jax
+    """The DPK segment writer (one XLA program per segment: DCT + quantize
+    + verify-repair + pack_ids_with_ac) + overlapped reader: bound holds,
+    frames are DPK v2 containers, and the decode equals the monolithic
+    device-coded encoding bit-for-bit (block-aligned input)."""
+    import dataclasses
 
     from dctz_tpu.core import container as ct
-    from dctz_tpu.ops import dpk_fuse
 
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    try:
-        rng = np.random.default_rng(7)
-        x = (np.sin(np.arange(1 << 18, dtype=np.float32) * 0.01) * 20
-             + rng.standard_normal(1 << 18).astype(np.float32) * 0.05)
-        cfg = CodecConfig(
-            mode="ec", error_bound=1e-3, container="v2",
-            ids_codec="device", verify=True,
-        )
-        buf = io.BytesIO()
-        stream.compress_stream(x, buf, config=cfg, segment_elems=1 << 16)
-        raw = buf.getvalue()
-        # frames must be DPK v2 containers
-        off = stream._HDR.size
-        (flen,) = stream._FRAME.unpack_from(raw, off)
-        hdr, _s, _q, _cb = ct.parse_v2(
-            raw[off + stream._FRAME.size : off + stream._FRAME.size + flen]
-        )
-        assert hdr.dpk
-        buf.seek(0)
-        y = stream.decompress_stream_all(buf)
-        tol = 1e-3 * (x.max() - x.min())
-        assert y.shape == x.shape
-        assert np.abs(y - x).max() <= tol
+    rng = np.random.default_rng(7)
+    x = (np.sin(np.arange(1 << 18, dtype=np.float32) * 0.01) * 20
+         + rng.standard_normal(1 << 18).astype(np.float32) * 0.05)
+    cfg = CodecConfig(
+        mode="ec", error_bound=1e-3, container="v2",
+        ids_codec="device", verify=True,
+    )
+    buf = io.BytesIO()
+    stream.compress_stream(x, buf, config=cfg, segment_elems=1 << 16)
+    raw = buf.getvalue()
+    # frames must be DPK v2 containers
+    off = stream._HDR.size
+    (flen,) = stream._FRAME.unpack_from(raw, off)
+    hdr, _s, _q, _cb = ct.parse_v2(
+        raw[off + stream._FRAME.size : off + stream._FRAME.size + flen]
+    )
+    assert hdr.dpk
+    buf.seek(0)
+    y = stream.decompress_stream_all(buf)
+    tol = 1e-3 * (x.max() - x.min())
+    assert y.shape == x.shape
+    assert np.abs(y - x).max() <= tol
 
-        # streamed EC == monolithic EC of the SAME dispatch, bit-for-bit
-        import dataclasses
-
-        from dctz_tpu.ops import compaction as cp
-
-        orig_cc = cp.use_chunked_compaction
-        cp.use_chunked_compaction = lambda: True
-        try:
-            y_mono = dctz_tpu.decompress(
-                dctz_tpu.compress(
-                    x, config=dataclasses.replace(cfg, segment_elems=0)
-                )
-            )
-        finally:
-            cp.use_chunked_compaction = orig_cc
-        np.testing.assert_array_equal(y, y_mono)
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        jax.config.update("jax_enable_x64", old_x64)
+    y_mono = dctz_tpu.decompress(
+        dctz_tpu.compress(x, config=dataclasses.replace(cfg, segment_elems=0))
+    )
+    np.testing.assert_array_equal(y, y_mono)
 
 
 def test_stream_qt_matches_monolithic():
@@ -177,126 +159,77 @@ def test_stream_qt_matches_monolithic():
 
 
 def test_stream_dpk_qt_fused_segments_roundtrip():
-    """QT on the pipelined DPK segment path (round 5): frames are QT DPK
-    v2 containers sharing the global qtable; the decoded stream equals the
-    monolithic fused QT decode bit-for-bit and holds the bound."""
-    import jax
-
+    """QT on the pipelined DPK segment path: frames are QT DPK v2
+    containers sharing the global qtable, and the unaligned tail segment
+    (zero-padded to the 1024 quantum) holds the bound."""
     from dctz_tpu.core import container as ct
-    from dctz_tpu.ops import dpk_fuse
-    from dctz_tpu.ops import fused_encode as fe
 
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    fe._INTERPRET = True
-    try:
-        rng = np.random.default_rng(9)
-        n = (1 << 17) + 1025  # unaligned: the tail segment pads to 1024
-        x = (np.sin(np.arange(n, dtype=np.float32) * 0.01) * 20
-             + rng.standard_normal(n).astype(np.float32) * 0.05)
-        x[::977] *= 30.0
-        cfg = CodecConfig(
-            mode="qt", error_bound=1e-3, container="v2",
-            ids_codec="device", verify=True,
+    rng = np.random.default_rng(9)
+    n = (1 << 17) + 1025  # unaligned: the tail segment pads to 1024
+    x = (np.sin(np.arange(n, dtype=np.float32) * 0.01) * 20
+         + rng.standard_normal(n).astype(np.float32) * 0.05)
+    x[::977] *= 30.0
+    cfg = CodecConfig(
+        mode="qt", error_bound=1e-3, container="v2",
+        ids_codec="device", verify=True,
+    )
+    buf = io.BytesIO()
+    stream.compress_stream(x, buf, config=cfg, segment_elems=1 << 16)
+    raw = buf.getvalue()
+    off = stream._HDR.size
+    tables = []
+    while True:
+        (flen,) = stream._FRAME.unpack_from(raw, off)
+        if not flen:
+            break
+        hdr, _s, qt, _cb = ct.parse_v2(
+            raw[off + stream._FRAME.size : off + stream._FRAME.size + flen]
         )
-        buf = io.BytesIO()
-        stream.compress_stream(x, buf, config=cfg, segment_elems=1 << 16)
-        raw = buf.getvalue()
-        off = stream._HDR.size
-        qt_last = None
-        while True:
-            (flen,) = stream._FRAME.unpack_from(raw, off)
-            if not flen:
-                break
-            hdr, _s, qt_last, _cb = ct.parse_v2(
-                raw[off + stream._FRAME.size
-                    : off + stream._FRAME.size + flen]
-            )
-            assert hdr.dpk and hdr.mode == "qt" and qt_last is not None
-            off += stream._FRAME.size + flen
-        # slot 0 = the tail segment's last REAL block DC, not a zero pad
-        # block's (regression: outs[6][-1] indexed the padded dc array)
-        assert qt_last[0] != 0.0
-        buf.seek(0)
-        y = stream.decompress_stream_all(buf)
-        tol = 1e-3 * (x.max() - x.min())
-        assert np.abs(y - x).max() <= tol
-
-        # streamed == monolithic OF THE SAME DISPATCH, even unaligned
-        # (both zero-pad the same 1024-quantum tail; forcing chunked
-        # compaction makes the monolithic arm take the fused path too)
-        import dataclasses
-
-        from dctz_tpu.ops import compaction as cp
-
-        orig_cc = cp.use_chunked_compaction
-        cp.use_chunked_compaction = lambda: True
-        try:
-            mono_cfg = dataclasses.replace(cfg, segment_elems=0)
-            y_mono = dctz_tpu.decompress(
-                dctz_tpu.compress(x, config=mono_cfg)
-            )
-        finally:
-            cp.use_chunked_compaction = orig_cc
-        np.testing.assert_array_equal(y, y_mono)
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        fe._INTERPRET = False
-        jax.config.update("jax_enable_x64", old_x64)
+        assert hdr.dpk and hdr.mode == "qt" and qt is not None
+        tables.append(qt)
+        off += stream._FRAME.size + flen
+    assert len(tables) == 3
+    for t in tables[1:]:
+        np.testing.assert_array_equal(t[1:], tables[0][1:])
+    # slot 0 = the tail segment's last REAL block DC, not a zero pad
+    # block's (regression: indexing the padded dc array)
+    assert tables[-1][0] != 0.0
+    buf.seek(0)
+    y = stream.decompress_stream_all(buf)
+    tol = 1e-3 * (x.max() - x.min())
+    assert np.abs(y - x).max() <= tol
 
 
 def test_segment_dpk_plane_split_engages():
     """The device byte-plane split must activate on the pipelined DPK
     segments for the DEFAULT config (regression: deciding on the
     _device_cfg-normalized config silently disabled it — shuffle=False)."""
-    import jax
-
     from dctz_tpu.api import _device_cfg
-    from dctz_tpu.ops import dpk_fuse
 
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    try:
-        cfg = CodecConfig(
-            mode="ec", error_bound=1e-3, container="v2", ids_codec="device",
-        )
-        seg = np.sin(np.arange(1 << 12, dtype=np.float32)) * 5
-        outs, planes, n_pad, _qt = stream._encode_segment_dpk(
-            seg, 8.0, 1e-2, _device_cfg(cfg), cfg
-        )
-        assert planes is not None
-        assert planes[0].shape[0] == 4 and planes[0].dtype == np.uint8
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        jax.config.update("jax_enable_x64", old_x64)
+    cfg = CodecConfig(
+        mode="ec", error_bound=1e-3, container="v2", ids_codec="device",
+    )
+    seg = np.sin(np.arange(1 << 12, dtype=np.float32)) * 5
+    outs, planes, n_pad, _qt = stream._encode_segment_dpk(
+        seg, 8.0, 1e-2, _device_cfg(cfg), cfg
+    )
+    assert planes is not None
+    assert planes[0].shape[0] == 4 and planes[0].dtype == np.uint8
 
 
 def test_compress_segment_elems_routes_to_stream():
     """cfg.segment_elems pipelines the monolithic compress() into a DTZS
     stream; decompress() auto-detects and round-trips."""
-    import jax
-
-    from dctz_tpu.ops import dpk_fuse
-
-    old_x64 = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", False)
-    dpk_fuse._FORCE, dpk_fuse._INTERPRET = True, True
-    try:
-        x = np.sin(np.arange(1 << 18, dtype=np.float32) * 0.003) * 11
-        cfg = CodecConfig(
-            mode="ec", error_bound=1e-3, container="v2",
-            ids_codec="device", verify=True, segment_elems=1 << 16,
-        )
-        blob = dctz_tpu.compress(x, config=cfg)
-        assert blob[:4] == b"DTZS"
-        y = dctz_tpu.decompress(blob)
-        tol = 1e-3 * (x.max() - x.min())
-        assert np.abs(y - x).max() <= tol
-    finally:
-        dpk_fuse._FORCE, dpk_fuse._INTERPRET = None, False
-        jax.config.update("jax_enable_x64", old_x64)
+    x = np.sin(np.arange(1 << 18, dtype=np.float32) * 0.003) * 11
+    cfg = CodecConfig(
+        mode="ec", error_bound=1e-3, container="v2",
+        ids_codec="device", verify=True, segment_elems=1 << 16,
+    )
+    blob = dctz_tpu.compress(x, config=cfg)
+    assert blob[:4] == b"DTZS"
+    y = dctz_tpu.decompress(blob)
+    tol = 1e-3 * (x.max() - x.min())
+    assert np.abs(y - x).max() <= tol
 
 
 def test_auto_segment_resolution():
@@ -383,22 +316,30 @@ def test_stream_device_resident_input_matches_numpy_path():
     assert dctz_tpu.evaluate(x, y_dev, 1e-3)["bound_satisfied"]
 
 
-def test_stream_generic_path_retries_on_ac_overflow(monkeypatch):
-    """Chunked-layout segments whose escape count exceeds the default
-    per-chunk AC capacity must retry at full width, not drop values
-    (pre-round-4 the generic stream path never checked q.overflowed)."""
-    from dctz_tpu.ops import compaction as cp
+def test_stream_generic_path_retries_on_ac_overflow():
+    """Segments whose escapes are dense must not drop values: the host-coded
+    segments compact into a full-length buffer, and the device-coded (DPK)
+    segments retry at full chunk width when a chunk's exceptions exceed
+    the default capacity."""
+    from dctz_tpu.ops import idpack
 
-    monkeypatch.setattr(cp, "use_chunked_compaction", lambda: True)
     rng = np.random.default_rng(11)
     # dense escapes: wild data at a tight bound escapes nearly every coef
     x = (rng.standard_normal(64 * 256) * 1e4).astype(np.float32)
-    buf = io.BytesIO()
-    stream.compress_stream(x, buf, 1e-3, "ec", segment_elems=64 * 128)
-    buf.seek(0)
-    y = stream.decompress_stream_all(buf)
     tol = 1e-3 * (x.max() - x.min()) * 1.01
-    assert np.abs(y - x.astype(np.float32)).max() <= tol
+    for ids_codec in ("auto", "device"):
+        cfg = CodecConfig(error_bound=1e-3, container="v2", ids_codec=ids_codec)
+        buf = io.BytesIO()
+        stream.compress_stream(x, buf, config=cfg, segment_elems=64 * 128)
+        buf.seek(0)
+        y = stream.decompress_stream_all(buf)
+        assert np.abs(y - x).max() <= tol, ids_codec
+    # the dense case really overflows the default exception capacity
+    _ids, _pk, _exc, counts, ovf = idpack.pack_ids(
+        np.full((128, 64), 255, np.uint8), 64 * 128, idpack.B_DEFAULT,
+        idpack.CAPE,
+    )
+    assert bool(ovf) and int(np.max(counts)) > idpack.CAPE
 
 
 def test_stream_restore_memory_bounded():

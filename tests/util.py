@@ -1,39 +1,3 @@
 """Shared test helpers."""
 
-import struct
-import zlib
-
-
-def canonical(blob: bytes) -> bytes:
-    """Canonicalize a container for byte-equality comparisons: zero the
-    decoder-ignored mean field (its value depends on summation order, so
-    sharded/native/XLA encoders legitimately differ in the last ulp —
-    dctz-decomp-lib.c:499,508 never reads it) and recompute the v3
-    header/table crc that covers it. All other bytes pass through, so any
-    real stream difference still fails the comparison.
-    """
-    from dctz_tpu.core import container as ctn
-
-    b = bytearray(blob)
-    if ctn.detect_format(blob) == "v1":
-        b[32:40] = b"\0" * 8  # union mean (dctz.h layout; see pack_v1)
-        return bytes(b)
-    magic, version, flags = struct.unpack_from("<4sHH", b, 0)
-    assert magic == ctn.V2_MAGIC
-    mean_off = struct.calcsize("<4sHHQdd")
-    b[mean_off : mean_off + 8] = b"\0" * 8
-    if version < 3:
-        return bytes(b)
-    # walk the per-section chunk tables to the header/table crc field
-    nsections = (
-        6
-        if flags & ctn._FLAG_DPK
-        else (4 if flags & ctn._FLAG_IDS4 else 3)
-    )
-    off = ctn._V2_FIXED_SIZE
-    per_chunk = 8 if version >= 2 else 4  # size + crc words
-    for _ in range(nsections):
-        (cnt,) = struct.unpack_from("<I", b, off)
-        off += 4 + per_chunk * cnt
-    struct.pack_into("<I", b, off, zlib.crc32(bytes(b[:off])) & 0xFFFFFFFF)
-    return bytes(b)
+from dctz_tpu.core.container import canonical  # noqa: F401
